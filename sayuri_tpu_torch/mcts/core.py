@@ -1,0 +1,531 @@
+"""Array-based batched MCTS (PyTorch port of sayuri_tpu.mcts.core).
+
+The forest of B independent game trees lives in dense tensors
+``[B, max_nodes + 1, ...]`` and one simulation per tree advances in
+lockstep:
+
+    select (vectorized PUCT descent)  ->  fused step + analysis kernel
+    ->  ONE batched network forward over all B leaves  ->  scatter backup
+
+Row ``max_nodes`` of every node array is a scratch row: masked-out
+expansions and backups write there instead of being dropped (the JAX
+package scatters out of bounds with mode="drop"), so no step needs a
+host sync. The descent is a Python loop that syncs once per depth level.
+
+Ported search semantics: PUCT with FPU reduction, dynamic cpuct scaled by
+the child value variance, log-growth cpuct, the score-utility term
+E[atan((s - center)/(div*bsize))]*2/pi by Gauss-Hermite quadrature, forced
+playouts at the root, Welford variance for WL and score, terminal
+two-pass leaves valued by the final score, exact-tie PUCT resolution to
+the highest prior, and LCB best-move selection. Dirichlet noise, Gumbel
+root selection, the NN cache, the first-pass bonus and tree reuse are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from sayuri_tpu_torch.game.state import GoEnv, GoState
+
+
+class NetEvals(NamedTuple):
+    """Evaluation of a batch of states, black perspective."""
+
+    priors: torch.Tensor          # [B, A] legal-masked softmax policy
+    black_wl: torch.Tensor        # [B] P(black wins) in [0, 1]
+    draw: torch.Tensor            # [B]
+    black_score: torch.Tensor     # [B] predicted black score lead
+    black_ownership: torch.Tensor  # [B, HW] in [-1, 1]
+
+
+# eval_fn(states, ctx) -> NetEvals; `ctx` is a per-search dict (root ladder
+# planes, the fused kernel's analysis) or None
+EvalFn = Callable[[GoState, Any], NetEvals]
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Search knobs, named like the JAX package's SearchConfig."""
+
+    max_nodes: int = 256
+    max_depth: int = 96
+    # PUCT
+    cpuct_init: float = 0.5
+    cpuct_base: float = 19652.0
+    cpuct_base_factor: float = 1.0
+    cpuct_dynamic: bool = True
+    cpuct_dynamic_k_factor: float = 4.0
+    cpuct_dynamic_k_base: float = 10000.0
+    fpu_reduction: float = 0.25
+    root_fpu_reduction: float = 0.25
+    # score utility
+    score_utility_factor: float = 0.4
+    score_utility_div: float = 1.0
+    forced_playouts_k: float = 0.0
+    # LCB best-move selection
+    lcb_reduction: float = 0.02
+    ci_alpha: float = 1e-5
+
+
+@dataclasses.dataclass
+class Tree:
+    """Forest of B trees; node 0 of each tree is its root and node
+    ``max_nodes`` is the scratch row."""
+
+    prior: torch.Tensor          # [B, N+1, A] f32, 0 for illegal actions
+    child: torch.Tensor          # [B, N+1, A] int64 node index or -1
+    # packed per-node stats [B, N+1, 8] f32:
+    #   0 visits, 1 acc_wl (black), 2 acc_draw, 3 acc_score (black),
+    #   4 sq_eval_diff, 5 sq_score_diff (Welford), 6 score_eval cache
+    #   (black), 7 net_wl (black)
+    stats: torch.Tensor
+    terminal: torch.Tensor       # [B, N+1] bool
+    states: GoState              # per-node states, leading dims [B, N+1]
+    next_free: torch.Tensor      # [B] int64
+    root_ownership: torch.Tensor  # [B, HW] running average
+    score_center: torch.Tensor   # [B] frozen score-utility center
+
+    @property
+    def visits(self):
+        return self.stats[..., 0].to(torch.int32)
+
+
+# Gauss-Hermite nodes/weights for E[f(mean + stddev*Z)], Z ~ N(0,1)
+_GH_X, _GH_W = np.polynomial.hermite_e.hermegauss(11)
+_GH_W = _GH_W / _GH_W.sum()
+
+
+def _norm_to_t_approx(z, dof):
+    """Normal quantile -> Student-t quantile approximation."""
+    dof = np.asarray(dof, np.float64)
+    n_hi = np.maximum(dof + 1.0, 2.0)
+    n_lo = dof + 2.0
+    hi = np.sqrt(
+        n_hi * np.exp(z * z * (n_hi - 1.5) / ((n_hi - 1.0) * (n_hi - 1.0)))
+        - n_hi
+    )
+    lo = np.sqrt(
+        n_lo
+        * np.exp(
+            z * z * (n_lo - 0.853999327911)
+            / ((n_lo - 1.044042304114) * (n_lo - 0.954115472059))
+        )
+        - n_lo
+    )
+    return np.where(dof > 8, hi, lo)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_lcb_z_table(ci_alpha=1e-5, size=1000):
+    """Entry i = t-quantile at dof i for complement probability ci_alpha."""
+    from scipy.stats import norm
+
+    z = float(norm.ppf(1.0 - ci_alpha))
+    return _norm_to_t_approx(z, np.arange(size)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(device: str):
+    return (torch.tensor(_GH_X, dtype=torch.float32, device=device),
+            torch.tensor(_GH_W, dtype=torch.float32, device=device))
+
+
+def expected_score_value(mean, stddev, center, div, board_size):
+    """E[atan((s - center)/(div*bsize))*2/pi], s ~ N(mean, stddev)."""
+    gx, gw = _consts(str(mean.device))
+    x = mean[..., None] + stddev[..., None] * gx
+    sv = torch.atan((x - center[..., None]) / (div * board_size)) * (2.0 / np.pi)
+    return (sv * gw).sum(-1)
+
+
+class MCTS:
+    """Batched search driver bound to an env + eval function."""
+
+    def __init__(self, env: GoEnv, eval_fn: EvalFn, cfg: SearchConfig):
+        self.env = env
+        self.eval_fn = eval_fn
+        self.cfg = cfg
+        self.A = env.num_actions
+
+    # ------------------------------------------------------------------
+    # tree construction
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def init_tree(self, root_states: GoState, ctx=None) -> Tree:
+        """Evaluate the roots and build a fresh forest."""
+        cfg = self.cfg
+        b = root_states.stones.shape[0]
+        dev = root_states.stones.device
+        rows, A = cfg.max_nodes + 1, self.A
+
+        evals = self.eval_fn(root_states, ctx)
+
+        # tree nodes never consult the superko ring: keep a length-1 stub
+        slim = root_states.replace(hash_history=root_states.hash_history[:, :1])
+
+        def node_buf(x):
+            buf = torch.zeros((b, rows) + x.shape[1:], dtype=x.dtype, device=dev)
+            buf[:, 0] = x
+            return buf
+
+        root_se = expected_score_value(
+            evals.black_score, torch.ones_like(evals.black_score),
+            evals.black_score, cfg.score_utility_div, float(self.env.n),
+        ) * cfg.score_utility_factor
+        zb = torch.zeros_like(evals.black_wl)
+        root_stats = torch.stack(
+            [torch.ones_like(zb), evals.black_wl, evals.draw, evals.black_score,
+             zb, zb, root_se, evals.black_wl], -1,
+        )
+        stats = torch.zeros((b, rows, 8), device=dev)
+        stats[:, 0] = root_stats
+        prior = torch.zeros((b, rows, A), device=dev)
+        prior[:, 0] = evals.priors
+        terminal = torch.zeros((b, rows), dtype=torch.bool, device=dev)
+        terminal[:, 0] = root_states.terminated
+        return Tree(
+            prior=prior,
+            child=torch.full((b, rows, A), -1, dtype=torch.int64, device=dev),
+            stats=stats,
+            terminal=terminal,
+            states=slim.map(node_buf),
+            next_free=torch.ones((b,), dtype=torch.int64, device=dev),
+            root_ownership=evals.black_ownership.clone(),
+            score_center=evals.black_score.clone(),
+        )
+
+    # ------------------------------------------------------------------
+    # selection
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _child_stats(tree, node_idx=None):
+        """([B, A, 8] stats of each action's child node, [B, A] child-exists
+        mask), zeros where no child. `node_idx=None` is the root."""
+        b = tree.stats.shape[0]
+        b_idx = torch.arange(b, device=tree.stats.device)
+        ch = tree.child[:, 0] if node_idx is None else tree.child[b_idx, node_idx]
+        has = ch >= 0
+        g = tree.stats[b_idx[:, None], ch.clamp(min=0)]
+        return torch.where(has[..., None], g, 0.0), has
+
+    def _puct_scores(self, tree, node_idx, is_root: bool, color=None):
+        """[B, A] PUCT selection scores at `node_idx` (None = the root)."""
+        cfg = self.cfg
+        b = tree.stats.shape[0]
+        b_idx = torch.arange(b, device=tree.stats.device)
+        if node_idx is None:
+            p_raw = tree.prior[:, 0]
+            g, _ = self._child_stats(tree)
+            node_row = tree.stats[:, 0]
+            if color is None:
+                color = tree.states.to_move[:, 0]
+        else:
+            p_raw = tree.prior[b_idx, node_idx]
+            g, _ = self._child_stats(tree, node_idx)
+            node_row = tree.stats[b_idx, node_idx]
+            if color is None:
+                color = tree.states.to_move[b_idx, node_idx]
+        legal = p_raw > 0
+
+        nv = g[..., 0]
+        wl_sum = g[..., 1]
+        se_b = g[..., 6]
+        ch_var = torch.where(nv > 1.0, g[..., 4] / (nv - 1.0).clamp(min=1.0), 1.0)
+        k_raw = torch.clamp(
+            cfg.cpuct_dynamic_k_factor * torch.sqrt(ch_var.clamp(min=0.0))
+            / nv.clamp(min=1.0),
+            0.5, 1.4,
+        )
+        cv = nv.sum(-1)
+        tvp = torch.where(nv > 0, p_raw, 0.0).sum(-1)
+
+        black = color == 0
+        sign = torch.where(black, 1.0, -1.0)
+
+        parent_v = node_row[:, 0]
+        node_net_wl = node_row[:, 7]
+        node_wl = node_row[:, 1] / parent_v.clamp(min=1.0)
+        net_wl_c = torch.where(black, node_net_wl, 1.0 - node_net_wl)
+        wl_c = torch.where(black, node_wl, 1.0 - node_wl)
+        fpu_red = (
+            cfg.root_fpu_reduction if is_root else cfg.fpu_reduction
+        ) * torch.sqrt(tvp)
+        avg_factor = torch.square(tvp)
+        fpu = torch.where(
+            parent_v <= 0,
+            net_wl_c - fpu_red,
+            (1.0 - avg_factor) * net_wl_c + avg_factor * wl_c - fpu_red,
+        )
+
+        wl_child_b = wl_sum / nv.clamp(min=1.0)
+        wl_child = torch.where(black[:, None], wl_child_b, 1.0 - wl_child_b)
+        score_eval = sign[:, None] * se_b
+        visited = nv > 0
+        q = torch.where(visited, wl_child + score_eval, fpu[:, None])
+
+        if cfg.forced_playouts_k > 0 and is_root:
+            forced_n = torch.floor(torch.sqrt(torch.clamp(
+                cfg.forced_playouts_k * torch.clamp(p_raw, max=0.2) * cv[:, None],
+                min=1e-4,
+            )))
+            q = q + torch.where(visited & (forced_n > nv), (forced_n - nv) * 1e6, 0.0)
+
+        cpuct = cfg.cpuct_init + cfg.cpuct_base_factor * torch.log(
+            (cv + cfg.cpuct_base + 1.0) / cfg.cpuct_base
+        )
+        if cfg.cpuct_dynamic:
+            alpha = 1.0 / (1.0 + torch.sqrt(cv[:, None] / cfg.cpuct_dynamic_k_base))
+            k = alpha * k_raw + (1.0 - alpha)
+            k = torch.where(nv > 1, k, 1.0)
+            cpuct_a = cpuct[:, None] * k
+        else:
+            cpuct_a = cpuct[:, None].expand_as(p_raw)
+
+        numerator = torch.sqrt(cv)
+        puct = cpuct_a * p_raw * (numerator[:, None] / (1.0 + nv))
+        return torch.where(legal, q + puct, -torch.inf)
+
+    @staticmethod
+    def _argmax_prior_tiebreak(scores, priors):
+        """[B] argmax of `scores` with exact ties resolved to the
+        highest-prior action, then the lowest action index (the reference
+        walks children in descending-policy order with a strict `>`)."""
+        m = scores.max(-1, keepdim=True).values
+        return torch.where(scores >= m, priors, -torch.inf).argmax(-1)
+
+    def _select_action(self, tree, node_idx, is_root, color=None):
+        scores = self._puct_scores(tree, node_idx, is_root, color=color)
+        if node_idx is None:
+            priors = tree.prior[:, 0]
+        else:
+            b_idx = torch.arange(scores.shape[0], device=scores.device)
+            priors = tree.prior[b_idx, node_idx]
+        return self._argmax_prior_tiebreak(scores, priors)
+
+    # ------------------------------------------------------------------
+    # one simulation for the whole batch
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def simulate(self, tree: Tree, ctx=None) -> Tree:
+        """One playout per tree; updates `tree` in place and returns it.
+        Each stage is a named profiler range (`mcts.*`)."""
+        b_idx = torch.arange(tree.stats.shape[0], device=tree.stats.device)
+        with record_function("mcts.descent"):
+            path, leaf_parent, leaf_action = self._descend(tree, b_idx)
+        with record_function("mcts.step_analysis"):
+            parent_states = tree.states.map(lambda x: x[b_idx, leaf_parent])
+            child_states, analysis = self.env.step_batch_with_analysis(
+                parent_states, leaf_action
+            )
+        with record_function("mcts.evaluate"):
+            evals = self.eval_fn(child_states, dict(ctx or {}, analysis=analysis))
+            leaf = self._leaf_values(child_states, analysis, evals)
+        with record_function("mcts.expand_backup"):
+            self._expand_backup(tree, b_idx, path, leaf_parent, leaf_action,
+                                child_states, evals, leaf)
+        return tree
+
+    def _descend(self, tree, b_idx):
+        """PUCT descent for every lane; depth 0 is hoisted (every lane is at
+        the root there). Returns (path [B, D], leaf parent, leaf action)."""
+        cfg = self.cfg
+        b, dev = b_idx.shape[0], b_idx.device
+        path = torch.full((b, cfg.max_depth), -1, dtype=torch.int64, device=dev)
+        path_a = path.clone()
+        done = tree.terminal[:, 0]
+        a0 = self._select_action(tree, None, True)
+        path[:, 0] = torch.where(done, -1, 0)
+        path_a[:, 0] = torch.where(done, -1, a0)
+        child0 = tree.child[b_idx, 0, a0]
+        child0_term = (child0 >= 0) & tree.terminal[b_idx, child0.clamp(min=0)]
+        done = done | (child0 < 0) | child0_term
+        cur = torch.where(done, 0, child0.clamp(min=0))
+        root_color = tree.states.to_move[:, 0].to(torch.int64)
+        depth = 1
+        while depth < cfg.max_depth and bool((~done).any()):
+            # to_move alternates every ply (pass included)
+            color = root_color ^ (depth & 1)
+            scores = self._puct_scores(tree, cur, False, color=color)
+            a = self._argmax_prior_tiebreak(scores, tree.prior[b_idx, cur])
+            child = tree.child[b_idx, cur, a]
+            path[:, depth] = torch.where(done, -1, cur)
+            path_a[:, depth] = torch.where(done, -1, a)
+            child_term = (child >= 0) & tree.terminal[b_idx, child.clamp(min=0)]
+            new_done = done | (child < 0) | child_term
+            cur = torch.where(new_done, cur, child.clamp(min=0))
+            done = new_done
+            depth += 1
+
+        # leaf edge = last recorded (node, action) per lane
+        last_d = ((path >= 0).sum(-1) - 1).clamp(min=0)
+        leaf_parent = torch.where(tree.terminal[:, 0], 0, path[b_idx, last_d])
+        leaf_parent = leaf_parent.clamp(min=0)
+        leaf_action = path_a[b_idx, last_d].clamp(min=0)
+        return path, leaf_parent, leaf_action
+
+    def _leaf_values(self, child_states, analysis, evals):
+        """(black_wl, black_score, black_own, draw) of the leaves: the net's
+        evaluation, or the final score for terminal two-pass leaves."""
+        term = child_states.terminated
+        own_map = analysis["score_ownership"].reshape(term.shape[0], -1)
+        t_score = (own_map.sum(-1).to(torch.float32)
+                   - self.env.komi_with_penalty(child_states))
+        own_map = own_map.to(torch.float32)
+        t_wl = torch.where(t_score > 0, 1.0, torch.where(t_score < 0, 0.0, 0.5))
+        black_wl = torch.where(term, t_wl, evals.black_wl)
+        black_score = torch.where(term, t_score, evals.black_score)
+        black_own = torch.where(term[:, None], own_map, evals.black_ownership)
+        draw = torch.where(term, 0.0, evals.draw)
+        return black_wl, black_score, black_own, draw
+
+    def _expand_backup(self, tree, b_idx, path, leaf_parent, leaf_action,
+                       child_states, evals, leaf):
+        """Expand the leaf (unless the child exists, the tree is full or the
+        root is terminal), then back up along the path + the leaf with one
+        gather and one scatter."""
+        cfg = self.cfg
+        n_nodes = cfg.max_nodes
+        black_wl, black_score, black_own, draw = leaf
+        term = child_states.terminated
+        existing_child = tree.child[b_idx, leaf_parent, leaf_action]
+        new_idx = tree.next_free
+        reuse_root = tree.terminal[:, 0]
+        can_expand = (existing_child < 0) & (new_idx < n_nodes) & ~reuse_root
+        node_for_stats = torch.where(
+            existing_child >= 0, existing_child, new_idx.clamp(max=n_nodes - 1)
+        )
+        node_for_stats = torch.where(reuse_root, 0, node_for_stats)
+        # masked lanes write the scratch row
+        exp_idx = torch.where(can_expand, node_for_stats, n_nodes)
+
+        tree.prior[b_idx, exp_idx] = evals.priors
+        tree.child[b_idx, leaf_parent, leaf_action] = torch.where(
+            can_expand, node_for_stats, existing_child
+        )
+        tree.stats[b_idx, exp_idx, 7] = black_wl
+        tree.terminal[b_idx, exp_idx] = term
+        for name, buf in tree.states.fields().items():
+            buf[b_idx, exp_idx] = getattr(child_states, name)
+        tree.next_free = tree.next_free + can_expand.to(torch.int64)
+
+        # ---- backup along path + the leaf: one gather + one scatter ----
+        leaf_ok = (can_expand | (existing_child >= 0)) & ~reuse_root
+        upd_idx = torch.cat(
+            [
+                path,
+                torch.where(leaf_ok, node_for_stats, -1)[:, None],
+                torch.where(reuse_root, 0, -1)[:, None],
+            ],
+            1,
+        )                                                 # [B, D+2]
+        ok = upd_idx >= 0
+        idx_safe = upd_idx.clamp(min=0)
+        bb = b_idx[:, None].expand_as(idx_safe)
+
+        old = tree.stats[bb, idx_safe]                    # [B, D+2, 8]
+        old_v = old[..., 0]
+        old_wl = old[..., 1]
+        old_sc = old[..., 3]
+
+        def wdelta(x, old_acc, ov):
+            old_delta = torch.where(ov > 0, x - old_acc / ov.clamp(min=1.0), 0.0)
+            new_delta = x - (old_acc + x) / (ov + 1.0)
+            return old_delta * new_delta
+
+        wl_e = black_wl[:, None]
+        dr_e = draw[:, None]
+        sc_e = black_score[:, None]
+        vf = ok.to(torch.float32)
+
+        nv2 = old_v + 1.0
+        acc_sc2 = old_sc + sc_e
+        sqs2 = old[..., 5] + wdelta(sc_e, old_sc, old_v)
+        mean2 = acc_sc2 / nv2
+        var2 = torch.where(nv2 > 1.0, sqs2 / (nv2 - 1.0).clamp(min=1.0), 1.0)
+        se_new = expected_score_value(
+            mean2, torch.sqrt(var2.clamp(min=0.0)),
+            tree.score_center[:, None].expand_as(mean2),
+            cfg.score_utility_div, float(self.env.n),
+        ) * cfg.score_utility_factor
+
+        delta = torch.stack(
+            [
+                vf,
+                wl_e * vf,
+                dr_e * vf,
+                sc_e * vf,
+                wdelta(wl_e, old_wl, old_v) * vf,
+                wdelta(sc_e, old_sc, old_v) * vf,
+                (se_new - old[..., 6]) * vf,
+                torch.zeros_like(vf),
+            ],
+            -1,
+        )
+        idx_scatter = torch.where(ok, idx_safe, n_nodes)
+        tree.stats.index_put_((bb, idx_scatter), delta, accumulate=True)
+
+        # root ownership running average
+        rv = tree.stats[:, 0, 0]
+        tree.root_ownership = (
+            tree.root_ownership + (black_own - tree.root_ownership) / rv[:, None]
+        )
+
+    def run(self, tree: Tree, num_sims: int, ctx=None) -> Tree:
+        """Run `num_sims` lockstep simulations."""
+        for _ in range(num_sims):
+            tree = self.simulate(tree, ctx)
+        return tree
+
+    # ------------------------------------------------------------------
+    # results
+    # ------------------------------------------------------------------
+
+    def root_child_visits(self, tree: Tree) -> torch.Tensor:
+        """[B, A] visit counts of root children."""
+        g, _ = self._child_stats(tree)
+        return g[..., 0].to(torch.int32)
+
+    def root_lcb_scores(self, tree: Tree) -> torch.Tensor:
+        """[B, A] LCB utility per root child: lcb = mean - z*stddev/visits
+        (z = t-quantile at dof visits-2), mixed = lcb + score_eval,
+        rlcb = mixed*(1 - lcb_reduction) + lcb_reduction*visits/cv;
+        visits <= 1 gives prior - 1e6, unvisited -inf."""
+        cfg = self.cfg
+        g, _ = self._child_stats(tree)
+        nv = g[..., 0]
+        visits = nv.to(torch.int32)
+        color = tree.states.to_move[:, 0]
+        wl_b = g[..., 1] / nv.clamp(min=1.0)
+        mean = torch.where(color[:, None] == 0, wl_b, 1.0 - wl_b)
+        var = torch.where(visits > 1, g[..., 4] / (nv - 1.0).clamp(min=1.0), 1.0)
+        stddev = torch.sqrt(var.clamp(min=0.0))
+        z_tab = torch.from_numpy(_make_lcb_z_table(cfg.ci_alpha)).to(nv.device)
+        z = z_tab[(visits - 2).clamp(0, z_tab.shape[0] - 1).to(torch.int64)]
+        lcb = mean - z * stddev / nv.clamp(min=1.0)
+        sign = torch.where(color == 0, 1.0, -1.0)[:, None]
+        mixed = lcb + sign * g[..., 6]
+        cv = nv.sum(-1, keepdim=True).clamp(min=1.0)
+        red = float(np.clip(cfg.lcb_reduction, 0.0, 1.0))
+        rlcb = mixed * (1.0 - red) + red * (nv / cv)
+        rlcb = torch.where(visits <= 1, tree.prior[:, 0] - 1e6, rlcb)
+        return torch.where(visits > 0, rlcb, -torch.inf)
+
+    def best_move(self, tree: Tree) -> torch.Tensor:
+        """[B] argmax of the LCB utility over visited children; the raw
+        prior's argmax when nothing is visited."""
+        visits = self.root_child_visits(tree)
+        score = self.root_lcb_scores(tree)
+        any_visited = (visits > 0).any(-1)
+        best_lcb = score.argmax(-1)
+        best_prior = tree.prior[:, 0].argmax(-1)
+        return torch.where(any_visited, best_lcb, best_prior)

@@ -1,0 +1,119 @@
+"""Network evaluator: GoState batch -> NetEvals for the search (PyTorch
+port of sayuri_tpu.models.evaluator).
+
+Encoder + forward + output post-processing: policy softmax over legal
+moves, value = (wdl_win - wdl_loss + 1) / 2, score = scores[0], all turned
+to black's perspective. With symmetry "random" every query is evaluated
+under its own dihedral transform drawn from the position hash, and the
+spatial outputs are transformed back.
+
+The board analysis the encoder needs (liberties, safe area, score
+ownership, legality) comes from ``ctx["analysis"]`` when the fused
+step+analysis kernel already produced it, else from one ``board_analysis``
+kernel launch (its plain twin for CPU tensors).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sayuri_tpu_torch.game.state import GoEnv, GoState
+from sayuri_tpu_torch.mcts.core import NetEvals
+from sayuri_tpu_torch.models import symmetry as S
+from sayuri_tpu_torch.models.encoder import encode
+from sayuri_tpu_torch.models.network import SayuriNet
+from sayuri_tpu_torch.ops.analysis import board_analysis
+
+
+# pass leaves the priors while more than (1 - factor) * size^2 legal board
+# moves remain (the reference's default factor)
+SUPPRESS_PASS_FACTOR = 0.1667
+
+
+def suppress_pass(priors, legal, size):
+    """Zero the pass prior while too many legal board moves remain, then
+    renormalize."""
+    n_legal = legal[:, :-1].sum(-1).to(torch.float32)
+    thresh = (1.0 - SUPPRESS_PASS_FACTOR) * (size * size).to(torch.float32)
+    keep_pass = ~(n_legal > thresh)
+    pri = torch.cat([priors[:, :-1], priors[:, -1:] * keep_pass[:, None]], -1)
+    return pri / pri.sum(-1, keepdim=True).clamp(min=1e-12)
+
+
+def make_eval_fn(
+    env: GoEnv,
+    net: SayuriNet,
+    symmetry: int | str = 0,
+    ladder_mode: str = "root",
+    compute_dtype: torch.dtype = torch.float32,
+):
+    """Build eval_fn(states, ctx) -> NetEvals.
+
+    `symmetry`: an int in [0, 8) (fixed transform, 0 = identity) or
+    "random" (per-query transform from the position hash; `ctx["sym"]`
+    overrides the draw).
+    `ladder_mode`: "root" reads the root position's ladder planes from
+    `ctx["ladders"]` ([B, n, n, 4]) and uses zeros when absent; "off" uses
+    zero planes.
+    `compute_dtype`: torch.bfloat16 runs the forward under autocast."""
+    if ladder_mode not in ("root", "off"):
+        raise ValueError(f"ladder_mode {ladder_mode!r}: only 'root' and 'off' are ported")
+    if not (symmetry == "random" or (isinstance(symmetry, int) and 0 <= symmetry < 8)):
+        raise ValueError(f"symmetry {symmetry!r}: use an int in [0, 8) or 'random'")
+    n = env.n
+
+    @torch.no_grad()
+    def eval_fn(states: GoState, ctx=None) -> NetEvals:
+        b = states.stones.shape[0]
+        dev = states.stones.device
+        if ladder_mode == "root" and ctx is not None and "ladders" in ctx:
+            lp = ctx["ladders"]
+        else:
+            lp = torch.zeros((b, n, n, 4), device=dev)
+
+        if ctx is not None and "analysis" in ctx:
+            analysis = ctx["analysis"]
+        else:
+            analysis = board_analysis(states.stones, states.size, states.ko,
+                                      states.to_move)
+        planes = encode(env, states, lp, analysis["libs"], analysis["safe"],
+                        analysis["score_ownership"])
+        board_legal = analysis["legal"] & ~states.terminated[:, None]
+        legal = torch.cat([board_legal, torch.ones_like(board_legal[:, :1])], -1)
+
+        if symmetry == "random":
+            if ctx is not None and "sym" in ctx:
+                syms = ctx["sym"]
+            else:
+                syms = S.random_symmetries(states)
+            planes = S.transform_planes_batch(planes, syms)
+        elif symmetry:
+            planes = S.transform_planes(planes, symmetry)
+
+        with torch.autocast(dev.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
+            out = net(planes)
+        prob = out["prob"].float()
+        ownership = out["ownership"].float()
+        if symmetry == "random":
+            prob = S.inverse_transform_policy_batch(prob, syms, n)
+            ownership = S.inverse_transform_policy_batch(ownership, syms, n)
+        elif symmetry:
+            prob = S.inverse_transform_policy(prob, symmetry, n)
+            ownership = S.inverse_transform_policy(ownership, symmetry, n)
+
+        logits = torch.where(legal, prob, -torch.inf)
+        priors = torch.where(legal, torch.softmax(logits, -1), 0.0)
+        wdl = torch.softmax(out["wdl"].float(), -1)
+        stm_wl = (wdl[:, 0] - wdl[:, 2] + 1.0) / 2.0
+        stm_score = out["scores"][:, 0].float()
+        is_black = states.to_move == 0
+        return NetEvals(
+            priors=suppress_pass(priors, legal, states.size),
+            black_wl=torch.where(is_black, stm_wl, 1.0 - stm_wl),
+            draw=wdl[:, 1],
+            black_score=torch.where(is_black, stm_score, -stm_score),
+            black_ownership=ownership * torch.where(is_black, 1.0, -1.0)[:, None],
+        )
+
+    return eval_fn
