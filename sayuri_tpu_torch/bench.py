@@ -1,9 +1,10 @@
 """Benchmark: NN-evaluated MCTS playouts/s on one CUDA device at 19x19.
 
-Full batched searches (fused step+analysis kernel, 43-plane encode, b6c96
-forward in bf16 under a random symmetry, tree update) with B games in
-lockstep, from empty boards. Root ladder planes are off until the ladder
-kernels are ported, hence the metric name's ``_ladder_off`` suffix.
+Full batched searches with B games in lockstep, from empty boards, as the
+JAX package's bench_playouts runs them: the root ladder planes (ladder prep,
+greedy and chase kernels) once per search, then the simulations (fused
+step+analysis kernel, 43-plane encode, b6c96 forward in bf16 under a random
+symmetry, tree update).
 
     python -m sayuri_tpu_torch.bench [batch] [playouts]
 
@@ -24,8 +25,9 @@ import sys
 import time
 
 import torch
+from torch.profiler import record_function
 
-METRIC = "mcts_playouts_per_s_19x19_b6c96_ladder_off"
+METRIC = "mcts_playouts_per_s_19x19_b6c96"
 
 
 def device_info() -> str:
@@ -39,7 +41,7 @@ def device_info() -> str:
 
 def _setup(batch: int, playouts: int, device, seed: int):
     """(MCTS driver, root states): b6c96 with seeded random weights, bf16,
-    random symmetry, ladder planes off, `batch` empty 19x19 boards."""
+    random symmetry, root ladder planes, `batch` empty 19x19 boards."""
     from sayuri_tpu_torch.game.state import GoEnv
     from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
     from sayuri_tpu_torch.models.evaluator import make_eval_fn
@@ -47,7 +49,7 @@ def _setup(batch: int, playouts: int, device, seed: int):
 
     env = GoEnv(n=19)
     net = SayuriNet(NetConfig(boardsize=19)).init_random(seed).to(device).eval()
-    eval_fn = make_eval_fn(env, net, symmetry="random", ladder_mode="off",
+    eval_fn = make_eval_fn(env, net, symmetry="random", ladder_mode="root",
                            compute_dtype=torch.bfloat16)
     mcts = MCTS(env, eval_fn, SearchConfig(max_nodes=playouts + 16, max_depth=64))
     return mcts, env.new_batch(batch, komi=7.5, device=device)
@@ -58,15 +60,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def bench_playouts(batch: int = 256, playouts: int = 96, device="cuda",
-                   iters: int = 3, seed: int = 0):
-    """Time `iters` searches of `playouts` simulations on `batch` empty
-    19x19 boards after one warm-up search. Returns a dict with the rate,
-    the last tree, the MCTS driver and the root states."""
-    mcts, states = _setup(batch, playouts, device, seed)
+def _searcher(mcts, states, playouts):
+    """One full search: the roots' ladder planes, then init_tree and the
+    simulations, all reading them through ctx["ladders"]."""
+    from sayuri_tpu_torch.game.ladder import ladder_planes_batch
 
     def search():
-        return mcts.run(mcts.init_tree(states), playouts)
+        with record_function("mcts.ladders"):
+            ctx = {"ladders": ladder_planes_batch(states.stones, states.size,
+                                                  states.ko)}
+        return mcts.run(mcts.init_tree(states, ctx), playouts, ctx)
+
+    return search
+
+
+def bench_playouts(batch: int = 256, playouts: int = 96, device="cuda",
+                   iters: int = 3, seed: int = 0, roots=None):
+    """Time `iters` searches of `playouts` simulations after one warm-up
+    search, from `batch` empty 19x19 boards or, when given, from the 19x19
+    GoState `roots` (moved to `device`). Returns a dict with the rate, the
+    last tree, the MCTS object and the root states."""
+    mcts, states = _setup(batch, playouts, device, seed)
+    if roots is not None:
+        states = roots.to(device)
+        batch = states.stones.shape[0]
+    search = _searcher(mcts, states, playouts)
 
     search()
     _sync(device)
@@ -99,9 +117,7 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     from torch.profiler import ProfilerActivity, profile
 
     mcts, states = _setup(batch, playouts, device, seed)
-
-    def search():
-        return mcts.run(mcts.init_tree(states), playouts)
+    search = _searcher(mcts, states, playouts)
 
     search()
     _sync(device)

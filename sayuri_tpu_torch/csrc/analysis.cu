@@ -1,10 +1,11 @@
 // Board step + analysis kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of sayuri_tpu/ops/analysis.py:
+// Replaces three Pallas TPU kernels of sayuri_tpu/ops/analysis.py:
 //   step_analysis_kernel  <- _step_analysis_kernel (entry step_and_analyze_tpu)
 //   board_analysis_kernel <- _analysis_kernel      (entry board_analysis_tpu)
-// Both share one __device__ routine, analyze_board(), as the Pallas pair
-// shares _analyze_board.
+//   ladder_prep_kernel    <- _ladder_prep_kernel   (entry ladder_prep_tpu)
+// The first two share one __device__ routine, analyze_board(), as the
+// Pallas pair shares _analyze_board; all three share the labelling.
 //
 // What bounds it on this card: not bytes (a board is 361 bytes in and a few
 // KB out) but the latency of serial, data-dependent fixpoint sweeps: chain
@@ -606,6 +607,93 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
                 safe + off, sown + off);
 }
 
+// ---------------------------------------------------------------------------
+// Ladder candidate prep (game/ladder.py reads it): chain labels, liberties
+// capped at 3, each chain's first and second liberty vertex, and the
+// single-vertex legality of both colours. Bounded, like the analysis, by a
+// few serial barrier passes per board. Liberties are exact distinct counts
+// per chain root (shared-memory atomics) capped afterwards, instead of the
+// TPU kernel's k-th-liberty propagations over float labels. The first
+// liberty is an atomicMin of the adjacent empty cells into the root; the
+// second a second pass that leaves the first out.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(MAXNN)
+ladder_prep_kernel(const int8_t* __restrict__ stones,
+                   const int* __restrict__ size, const int* __restrict__ ko,
+                   int* labels, int* nlibs, int* lib1, int* lib2,
+                   bool* legal_black, bool* legal_white, int n) {
+  __shared__ uint8_t cls[MAXNN];   // stone colour on the board, else 0
+  __shared__ uint8_t msk[MAXNN];
+  __shared__ int lbl[MAXNN], cnt[MAXNN], l1[MAXNN], l2[MAXNN];
+  const Geo g = make_geo(n);
+  const int t = g.t;
+  const long b = blockIdx.x;
+  const long off = b * g.nn;
+  const int sz = size[b];
+  const bool m = g.cell && g.y < sz && g.x < sz;
+  const int8_t v = g.cell ? stones[off + t] : 0;
+  if (g.cell) {
+    cls[t] = m ? (uint8_t)v : 0;
+    msk[t] = m;
+    cnt[t] = 0;
+    l1[t] = g.nn;
+    l2[t] = g.nn;
+  }
+  __syncthreads();
+  label_by_class(g, cls, lbl);
+  // every empty cell is one liberty of each distinct adjacent chain
+  const bool empty = m && v == 0;
+  int adj[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int q = g.nb[d];
+    int l = (empty && q >= 0 && cls[q]) ? lbl[q] : -1;
+    for (int e = 0; e < d; ++e)
+      if (adj[e] == l) l = -1;
+    adj[d] = l;
+    if (l >= 0) {
+      atomicAdd(&cnt[l], 1);
+      atomicMin(&l1[l], t);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    if (adj[d] >= 0 && l1[adj[d]] != t) atomicMin(&l2[adj[d]], t);
+  __syncthreads();
+  if (!g.cell) return;
+  const bool stone = cls[t] != 0;
+  const int root = stone ? lbl[t] : 0;
+  labels[off + t] = stone ? root : -1;
+  nlibs[off + t] = stone ? min(cnt[root], 3) : 0;
+  lib1[off + t] = stone ? l1[root] : g.nn;
+  lib2[off + t] = stone ? l2[root] : g.nn;
+  // legal for a colour: empty, not ko, and an empty neighbour, an own
+  // neighbour chain with >= 2 liberties or an opponent one in atari
+  bool nb_empty = false, ok_b = false, ok_w = false;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int q = g.nb[d];
+    if (q < 0 || !msk[q]) continue;
+    const uint8_t c = cls[q];
+    if (c == 0) {
+      nb_empty = true;
+      continue;
+    }
+    const int lq = cnt[lbl[q]];
+    if (c == 1) {
+      ok_b |= lq >= 2;
+      ok_w |= lq == 1;
+    } else {
+      ok_w |= lq >= 2;
+      ok_b |= lq == 1;
+    }
+  }
+  const bool base = empty && t != ko[b];
+  legal_black[off + t] = base && (nb_empty || ok_b);
+  legal_white[off + t] = base && (nb_empty || ok_w);
+}
+
 inline int threads_for(int n) { return ((n * n + 31) / 32) * 32; }
 
 }  // namespace
@@ -636,5 +724,18 @@ extern "C" int launch_step_analysis(const void* stones, const void* size,
       (const int*)to_move, (const int*)action, (const int*)zob,
       (int8_t*)new_stones, (int*)ncap, (int*)new_ko, (int*)hash, (bool*)legal,
       (int*)libs, (int*)own, (bool*)safe, (int*)sown, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_ladder_prep(const void* stones, const void* size,
+                                  const void* ko, void* labels, void* nlibs,
+                                  void* lib1, void* lib2, void* legal_black,
+                                  void* legal_white, int batch, int n,
+                                  void* stream) {
+  if (n < 2 || n * n > MAXNN || batch <= 0) return (int)cudaErrorInvalidValue;
+  ladder_prep_kernel<<<batch, threads_for(n), 0, (cudaStream_t)stream>>>(
+      (const int8_t*)stones, (const int*)size, (const int*)ko, (int*)labels,
+      (int*)nlibs, (int*)lib1, (int*)lib2, (bool*)legal_black,
+      (bool*)legal_white, n);
   return (int)cudaGetLastError();
 }

@@ -10,13 +10,16 @@ spatial outputs are transformed back.
 The board analysis the encoder needs (liberties, safe area, score
 ownership, legality) comes from ``ctx["analysis"]`` when the fused
 step+analysis kernel already produced it, else from one ``board_analysis``
-kernel launch (its plain twin for CPU tensors).
+kernel launch (its plain twin for CPU tensors). The ladder planes come from
+the root (``ctx["ladders"]``) or, with ``ladder_mode="full"``, from the
+ladder kernels on every evaluated position.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sayuri_tpu_torch.game.ladder import ladder_planes_batch
 from sayuri_tpu_torch.game.state import GoEnv, GoState
 from sayuri_tpu_torch.mcts.core import NetEvals
 from sayuri_tpu_torch.models import symmetry as S
@@ -52,12 +55,13 @@ def make_eval_fn(
     `symmetry`: an int in [0, 8) (fixed transform, 0 = identity) or
     "random" (per-query transform from the position hash; `ctx["sym"]`
     overrides the draw).
-    `ladder_mode`: "root" reads the root position's ladder planes from
+    `ladder_mode`: "full" computes the ladder planes of every evaluated
+    position; "root" reads the root position's planes from
     `ctx["ladders"]` ([B, n, n, 4]) and uses zeros when absent; "off" uses
     zero planes.
     `compute_dtype`: torch.bfloat16 runs the forward under autocast."""
-    if ladder_mode not in ("root", "off"):
-        raise ValueError(f"ladder_mode {ladder_mode!r}: only 'root' and 'off' are ported")
+    if ladder_mode not in ("full", "root", "off"):
+        raise ValueError(f"ladder_mode {ladder_mode!r}: use 'full', 'root' or 'off'")
     if not (symmetry == "random" or (isinstance(symmetry, int) and 0 <= symmetry < 8)):
         raise ValueError(f"symmetry {symmetry!r}: use an int in [0, 8) or 'random'")
     n = env.n
@@ -66,7 +70,9 @@ def make_eval_fn(
     def eval_fn(states: GoState, ctx=None) -> NetEvals:
         b = states.stones.shape[0]
         dev = states.stones.device
-        if ladder_mode == "root" and ctx is not None and "ladders" in ctx:
+        if ladder_mode == "full":
+            lp = ladder_planes_batch(states.stones, states.size, states.ko)
+        elif ladder_mode == "root" and ctx is not None and "ladders" in ctx:
             lp = ctx["ladders"]
         else:
             lp = torch.zeros((b, n, n, 4), device=dev)

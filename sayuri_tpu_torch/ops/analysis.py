@@ -1,7 +1,7 @@
 """Board step + analysis kernels (CUDA, csrc/analysis.cu) and their plain
 PyTorch twins.
 
-Two entry points, each a hand-written CUDA kernel for sm_90a:
+Three entry points, each a hand-written CUDA kernel for sm_90a:
 
 - ``step_and_analyze`` replaces the Pallas ``_step_analysis_kernel``
   (sayuri_tpu/ops/analysis.py, entry ``step_and_analyze_tpu``): play the
@@ -10,6 +10,10 @@ Two entry points, each a hand-written CUDA kernel for sm_90a:
 - ``board_analysis`` replaces the Pallas ``_analysis_kernel`` (entry
   ``board_analysis_tpu``): the same analysis on a position without a move.
   It serves the root evaluation.
+- ``ladder_prep`` replaces the Pallas ``_ladder_prep_kernel`` (entry
+  ``ladder_prep_tpu``): the per-cell maps the ladder front end
+  (game/ladder.py) extracts its candidate chains from. It runs once per
+  ladder-plane batch.
 
 The analysis outputs are: legality, per-stone chain liberties capped at 5,
 Tromp-Taylor reach ownership, the safe (pass-alive / pass-dead) area of
@@ -35,7 +39,7 @@ _NUM_LIBS = 5  # liberty counts are capped here (planes need 1..4 exactly)
 MAX_N = 19     # one CUDA thread per cell, 384 threads at most
 
 # kernel launches per entry point (CUDA tensors only; the twins never count)
-LAUNCHES = {"step_and_analyze": 0, "board_analysis": 0}
+LAUNCHES = {"step_and_analyze": 0, "board_analysis": 0, "ladder_prep": 0}
 
 
 def reset_launch_counts():
@@ -90,6 +94,66 @@ def step_and_analyze_plain(stones, size, ko, to_move, action):
     return out
 
 
+def _chain_lib_vertices(labels, empty):
+    """Per-chain-root first and second liberty vertex ([B, nn] int64 each,
+    nn where absent): scatter-min of the adjacent empty cells into roots."""
+    n = labels.shape[-1]
+    nn = n * n
+    b = labels.shape[0]
+    nbr = torch.where(empty[:, None], B.neighbor_labels(labels), -1)
+    tgt = torch.where(nbr >= 0, nbr, nn).reshape(b, 4 * nn)
+    cell = B.flat_iota(n, labels.device).reshape(1, 1, nn).expand(b, 4, nn)
+    cell = cell.reshape(b, 4 * nn)
+    init = torch.full((b, nn + 1), nn, dtype=torch.int64, device=labels.device)
+    lib1 = init.scatter_reduce(1, tgt, cell, "amin")
+    tgt2 = torch.where(cell == lib1.gather(1, tgt), nn, tgt)
+    lib2 = init.scatter_reduce(1, tgt2, cell, "amin")
+    return lib1[:, :nn], lib2[:, :nn]
+
+
+def ladder_prep_plain(stones, size, ko):
+    """Plain PyTorch version of the ladder prep kernel. [B, n, n] int8
+    stones, [B] int32 size/ko -> dict of [B, nn] maps: labels int32 (chain
+    root = smallest flat index, -1 off a chain), nlibs int32 (the chain's
+    liberties capped at 3, 0 off a chain), lib1/lib2 int32 (the chain's
+    first/second liberty vertex, nn when absent or off a chain),
+    legal_black/legal_white bool (IsLegalMove of one vertex: empty, not
+    the ko vertex, and an empty neighbour, an own neighbour chain with >= 2
+    liberties or an opponent neighbour chain in atari)."""
+    n = stones.shape[-1]
+    nn = n * n
+    b = stones.shape[0]
+    mask = B.board_mask(size, n, stones.device)
+    empty = (stones == 0) & mask
+    black = (stones == C_BLACK) & mask
+    white = (stones == C_WHITE) & mask
+    lbl_b, lbl_w = B.chain_labels(black), B.chain_labels(white)
+    labels = torch.where(lbl_b >= 0, lbl_b, lbl_w)
+    libs = (B.chain_liberty_map(black, lbl_b, empty)
+            + B.chain_liberty_map(white, lbl_w, empty))
+    lib1, lib2 = _chain_lib_vertices(labels, empty)
+    flat_lbl = labels.reshape(b, nn)
+    stone = flat_lbl >= 0
+    root = flat_lbl.clamp(min=0)
+    not_ko = B.flat_iota(n, stones.device) != ko.to(torch.int64)[:, None, None]
+    base = empty & not_ko
+    emp_nb = B.nbr_or(empty)
+
+    def legal(own, opp):
+        ok = emp_nb | B.nbr_or(own & (libs >= 2)) | B.nbr_or(opp & (libs == 1))
+        return (base & ok).reshape(b, nn)
+
+    i32 = torch.int32
+    return {
+        "labels": flat_lbl.to(i32),
+        "nlibs": libs.clamp(max=3).reshape(b, nn).to(i32),
+        "lib1": torch.where(stone, lib1.gather(1, root), nn).to(i32),
+        "lib2": torch.where(stone, lib2.gather(1, root), nn).to(i32),
+        "legal_black": legal(black, white),
+        "legal_white": legal(white, black),
+    }
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -104,6 +168,8 @@ def _lib():
     lib.launch_board_analysis.restype = i
     lib.launch_step_analysis.argtypes = [vp] * 6 + [vp] * 9 + [i, i, vp]
     lib.launch_step_analysis.restype = i
+    lib.launch_ladder_prep.argtypes = [vp] * 3 + [vp] * 6 + [i, i, vp]
+    lib.launch_ladder_prep.restype = i
     return lib
 
 
@@ -225,3 +291,28 @@ def step_and_analyze(stones, size, ko, to_move, action):
         "safe": safe,
         "score_ownership": sown,
     }
+
+
+def ladder_prep(stones, size, ko):
+    """Ladder candidate maps of a batch: [B, n, n] int8 stones, [B] int32
+    size/ko -> dict(labels, nlibs, lib1, lib2 [B, nn] int32, legal_black,
+    legal_white [B, nn] bool); see ladder_prep_plain."""
+    if stones.device.type == "cpu":
+        return ladder_prep_plain(stones, size, ko)
+    if stones.device.type != "cuda":
+        raise ValueError(f"ladder_prep: unsupported device {stones.device}")
+    b, n = _check_inputs(stones, {"size": size, "ko": ko})
+    dev = stones.device
+    out = {k: torch.empty((b, n * n), dtype=torch.int32, device=dev)
+           for k in ("labels", "nlibs", "lib1", "lib2")}
+    out.update({k: torch.empty((b, n * n), dtype=torch.bool, device=dev)
+                for k in ("legal_black", "legal_white")})
+    if b:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().launch_ladder_prep(
+            _ptr(stones), _ptr(size), _ptr(ko), *(_ptr(t) for t in out.values()),
+            b, n, ctypes.c_void_p(stream),
+        )
+        _raise_if(rc, "ladder_prep")
+        LAUNCHES["ladder_prep"] += 1
+    return out

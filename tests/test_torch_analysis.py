@@ -124,7 +124,8 @@ def test_cpu_wrappers_use_twins_and_count_nothing():
                               torch.tensor([12, 25], dtype=torch.int32))
     assert out["new_stones"][0, 2, 2] == 1 and out["new_stones"][1].sum() == 0
     TA.board_analysis(s.stones, s.size, s.ko, s.to_move)
-    assert TA.LAUNCHES == {"step_and_analyze": 0, "board_analysis": 0}
+    assert TA.LAUNCHES == {"step_and_analyze": 0, "board_analysis": 0,
+                           "ladder_prep": 0}
 
 
 def test_wrappers_reject_unsupported_device():

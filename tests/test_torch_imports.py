@@ -17,7 +17,9 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.game.board",
     "sayuri_tpu_torch.game.analysis",
     "sayuri_tpu_torch.game.state",
+    "sayuri_tpu_torch.game.ladder",
     "sayuri_tpu_torch.ops.analysis",
+    "sayuri_tpu_torch.ops.ladder_kernel",
     "sayuri_tpu_torch.ops.build",
     "sayuri_tpu_torch.models.symmetry",
     "sayuri_tpu_torch.models.encoder",
