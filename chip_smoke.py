@@ -7,8 +7,9 @@ Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
 
 1. device: the card's name and power limit; TF32 off for the f32 phases.
-2. build: compile csrc/analysis.cu and csrc/ladder.cu with nvcc for sm_90a
-   (first use, both nvcc processes at once); ptxas resources printed.
+2. build: compile csrc/analysis.cu, csrc/ladder.cu and csrc/flood.cu with
+   nvcc for sm_90a (first use, the three nvcc processes at once); ptxas
+   resources printed.
 3. kernel parity: random legal 19x19 positions (B=256, numpy seed) plus
    the pass-dead golden boards, through both analysis kernels and their
    plain twins on the CPU: every output equal cell for cell; kernel and
@@ -31,8 +32,37 @@ no result line):
    playouts, the same seeded weights on the card and on the CPU (twins):
    root NetEvals within 1e-4, share of lanes with identical root visit
    vectors reported.
+8. step-legal parity: step_and_legal against its plain version on the
+   CPU over the positions and actions of phase 3 and the pass-dead
+   goldens, every output equal; at B=4096 (the positions tiled 16 times)
+   equal to the tiled plain output; kernel timed at B=256 and B=4096; then
+   the env-steps bench (bench_env_steps: B=4096 19x19, 64 light steps a
+   run, one warm-up and three timed runs), one launch a step plus the pass
+   pre-step, every lane's move count advanced, and the last run's final
+   GoState equal to the same rollout through step_and_legal_plain.
+9. board fixpoints: flood and chain_labels against their plain versions
+   on the colour masks of the 256 positions, on reach seeds and on a
+   nested [2, B, n, n] batch; then the rules queries (legal_action_mask,
+   step, superko_action_mask, final_score, ownership) on the B=256 card
+   states, equal to the plain CPU run (superko on 32 lanes); kernels and
+   superko_action_mask timed at B=256.
+10. rollout: mc_ownership at B=256 with the full 723-move cap on the card;
+    the moves it played replayed through the plain CPU env give the same
+    ownership and scores (on 64 lanes); a search with the rollout-wrapped
+    weightless evaluator (cut playout cap): root visits = playouts + 1.
+11. randomize: GameRandomizer.prepare at B=256 with the b6c96 net (bf16)
+    as the policy, random openings on every lane and a bhp:19:4:0.5
+    handicap query; its sampled moves replayed on the CPU give the same
+    GoState, and every lane keeps a legal move.
+12. fixpoint shapes: flood and chain_labels at every board count their
+    wrappers were given in phases 9-11 (a spy on ops/flood.py keeps the
+    first inputs of each), equal to their plain versions and timed there;
+    the launches of each shape give its share of the kernel's time.
 
-The second-to-last line is the kernels JSON; the last line is
+Launch counters are set to 0 right before each main path (phases 5, 8-11)
+and read right after it. The second-to-last line is the kernels JSON (all
+eight kernels: launches on their path, max abs error against the plain
+version, kernel and plain ms, the bound, library call); the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
 device the script fails.
 """
@@ -48,10 +78,40 @@ ROOT = Path(__file__).resolve().parent
 PARITY_B = 256
 SLICE_BATCH, SLICE_PLAYOUTS = 256, 96
 EVAL_ATOL = 1e-4  # f32 card vs CPU: conv/matmul sums in another order
+ENV_BATCH, ENV_STEPS, ENV_RUNS = 4096, 64, 3
+ROLLOUT_REPLAY_LANES = 64
+WRAPPED_PLAYOUTS, WRAPPED_MAX_MOVES = 8, 64
+# the bound: H100 SXM data sheet rates (HBM bytes/s; float32 outside the
+# tensor cores, taken as the rate of the scalar integer work these kernels
+# do). Operations counted: OPS_PER_CELL a board cell (or lane row), the
+# least any algorithm spends to read a cell and its four neighbours once.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+OPS_PER_CELL = 8
 
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def tensor_bytes(torch, obj):
+    """Bytes of every tensor in `obj` (a tensor, or nested tuples, lists and
+    dicts of them)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(torch, x) for x in obj)
+    return 0
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take to read the
+    inputs and write the outputs once (`nbytes`) and to do `ops` scalar
+    operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def random_positions(torch, np, n, b, seed, max_moves):
@@ -62,7 +122,7 @@ def random_positions(torch, np, n, b, seed, max_moves):
 
     env = GoEnv(n=n)
     rng = np.random.RandomState(seed)
-    s = env.new_batch(b)
+    s = env.new_batch(b, device="cpu")
     stop = rng.randint(0, max_moves, size=b)
     for m in range(max_moves):
         legal = env.legal_action_mask(s).numpy()
@@ -88,7 +148,7 @@ def golden_positions(torch, np):
     env = GoEnv(n=n)
     boards = []
     for rec in data["records"]:
-        s = env.new_batch(1, komi=data["komi"])
+        s = env.new_batch(1, komi=data["komi"], device="cpu")
         for _, v in rec["moves"]:
             s = env.step(s, torch.tensor([n * n if v < 0 else v], dtype=torch.int32))
         if rec["stones"] is not None and s.stones.reshape(-1).tolist() != rec["stones"]:
@@ -102,15 +162,19 @@ def golden_positions(torch, np):
 
 
 def compare(torch, kernel_out, plain_out, tag):
-    """Cell-for-cell equality; returns (cells compared, max abs error)."""
+    """Cell-for-cell equality (floats exact too); returns (cells compared,
+    max abs error)."""
     cells, err = 0, 0
     for k, want in plain_out.items():
-        got = kernel_out[k].cpu()
+        got, want = kernel_out[k].cpu(), want.cpu()
         if got.shape != want.shape:
             raise RuntimeError(f"{tag}: {k} shape {tuple(got.shape)} != {tuple(want.shape)}")
-        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        if want.is_floating_point():
+            diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        else:
+            diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
         cells += diff.numel()
-        err = max(err, int(diff.max()) if diff.numel() else 0)
+        err = max(err, diff.max().item() if diff.numel() else 0)
         if err:
             bad = diff.reshape(diff.shape[0], -1).amax(1).nonzero().flatten().tolist()
             raise RuntimeError(f"{tag}: {k} differs in lanes {bad[:16]}")
@@ -132,6 +196,21 @@ def time_card(torch, fn, args, iters=20, warmup=2):
     return e0.elapsed_time(e1) / iters
 
 
+def legal_actions(torch, np, args, seed):
+    """One action per board of (stones, size, ko, to_move): a random legal
+    board move, or a pass for every fifth board and where none is legal."""
+    from sayuri_tpu_torch.game import board as TB
+
+    stones, size, ko, tm = args
+    nn = stones.shape[-1] ** 2
+    legal = TB.legal_moves(stones, size, tm, ko, plain=True).numpy()
+    rng = np.random.RandomState(seed)
+    return torch.tensor([
+        rng.choice(np.nonzero(l)[0]) if l.any() and i % 5 else nn
+        for i, l in enumerate(legal)
+    ], dtype=torch.int32)
+
+
 def golden19_positions(torch):
     """The 54 records of go_goldens_19.json replayed with the port's plain
     env in one batch (a lane stops after its last move). Returns (states,
@@ -142,7 +221,7 @@ def golden19_positions(torch):
     records = data["records"]
     n, b = data["size"], len(records)
     env = GoEnv(n=n)
-    s = env.new_batch(b, komi=data["komi"])
+    s = env.new_batch(b, komi=data["komi"], device="cpu")
     moves = [r["moves"] for r in records]
     for t in range(max(len(m) for m in moves)):
         active = torch.tensor([t < len(m) for m in moves])
@@ -181,6 +260,36 @@ class LaneSpy:
             setattr(self.LK, name, fn)
 
 
+class ShapeSpy:
+    """While installed, counts the CUDA launches of ops/flood.py's flood
+    and chain_labels by (name, number of boards) and keeps a copy of the
+    first inputs of each shape (to check and time the kernels at the
+    shapes their main paths give them)."""
+
+    NAMES = ("flood", "chain_labels")
+
+    def __init__(self, FK):
+        self.FK = FK
+        self.counts = {}
+        self.inputs = {}
+
+    def install(self):
+        self.real = {k: getattr(self.FK, k) for k in self.NAMES}
+        for name, fn in self.real.items():
+            def spy(*args, _fn=fn, _name=name):
+                t = args[-1]
+                if t.device.type == "cuda" and t.numel():
+                    key = (_name, t.numel() // (t.shape[-1] ** 2))
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                    self.inputs.setdefault(key, tuple(a.clone() for a in args))
+                return _fn(*args)
+            setattr(self.FK, name, spy)
+
+    def remove(self):
+        for name, fn in self.real.items():
+            setattr(self.FK, name, fn)
+
+
 def main():
     import torch
 
@@ -196,14 +305,26 @@ def main():
     from sayuri_tpu_torch.game import ladder as TL
     from sayuri_tpu_torch.ops import analysis as TA
     from sayuri_tpu_torch.ops import build
+    from sayuri_tpu_torch.ops import flood as FK
     from sayuri_tpu_torch.ops import ladder_kernel as LK
+
+    shape_spy = ShapeSpy(FK)
 
     def reset_counts():
         TA.reset_launch_counts()
         LK.reset_launch_counts()
+        FK.reset_launch_counts()
+        shape_spy.counts.clear()
 
     def counts():
-        return {**TA.LAUNCHES, **LK.LAUNCHES}
+        return {**TA.LAUNCHES, **LK.LAUNCHES, **FK.LAUNCHES}
+
+    phase_t0 = [time.monotonic()]
+
+    def phase_done(name):
+        now = time.monotonic()
+        print(f"-- {name}: {now - phase_t0[0]:.1f} s", flush=True)
+        phase_t0[0] = now
 
     # ---- 1. device ----
     phase("device")
@@ -217,9 +338,9 @@ def main():
 
     # ---- 2. build ----
     phase("build")
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda f: f(), (TA._lib, LK._lib)))
-    for name in ("analysis", "ladder"):
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda f: f(), (TA._lib, LK._lib, FK._lib)))
+    for name in ("analysis", "ladder", "flood"):
         print(f"{name}.cu built in {build.BUILD_SECONDS[name]:.2f} s "
               f"({build.find_nvcc()})")
         ptxas = (build.BUILD_DIR / f"lib{name}.ptxas.txt").read_text().splitlines()
@@ -228,6 +349,7 @@ def main():
                 print("  " + re.search(r"\d([a-z_]+_kernel)E", line).group(1))
             elif "Used" in line or "spill" in line:
                 print("    " + line.strip())
+    phase_done("device and build")
 
     # ---- 3. kernel parity ----
     phase("kernel parity")
@@ -263,9 +385,12 @@ def main():
             r["cpu_plain_ms"] = (time.monotonic() - t_cpu) * 1e3
             r["ms"] = time_card(torch, fn, args)
             r["plain_ms"] = time_card(torch, plain, args, iters=3)
+            r["nbytes"] = tensor_bytes(torch, (args, got))
+            r["ops"] = OPS_PER_CELL * args[0].numel()
             compare(torch, plain(*args), want, tag + " plain on card")
         print(f"{tag}: {cells} cells equal, max abs err {err}")
     print(f"kernel parity: {total_cells} cells compared, all equal")
+    phase_done("kernel parity")
     for name, r in rec.items():
         print(f"{name} B={PARITY_B} 19x19: kernel {r['ms']:.4f} ms, plain torch "
               f"on card {r['plain_ms']:.2f} ms, plain torch on CPU "
@@ -327,6 +452,8 @@ def main():
     )
     for name, fn, plain, a in timed:
         r = ladder_rec[name]
+        r["nbytes"] = tensor_bytes(torch, (a, fn(*a)))
+        r["ops"] = OPS_PER_CELL * a[0].numel()
         r["ms"] = time_card(torch, fn, a)
         r["plain_ms"] = time_card(torch, plain, a, iters=1, warmup=0)
         rec[name] = r
@@ -335,6 +462,7 @@ def main():
     planes_ms = time_card(torch, TL.ladder_planes_batch, args, iters=5)
     print(f"ladder_planes_batch B={PARITY_B} 19x19 (prep, candidates, both "
           f"searches, planes): {planes_ms:.3f} ms on the card  [{card}]")
+    phase_done("ladder kernel parity")
 
     def check_roots(res, tag):
         tree, mcts, batch = res["tree"], res["mcts"], res["states"].stones.shape[0]
@@ -370,12 +498,16 @@ def main():
     res = bench.bench_playouts(SLICE_BATCH, SLICE_PLAYOUTS, device=dev)
     torch.cuda.synchronize()
     launches = counts()
+    path_launches = {k: ("slice", launches[k]) for k in (
+        "step_and_analyze", "board_analysis", "ladder_prep", "run_greedy",
+        "run_chases")}
     check_launches(launches, res, "slice")
     check_roots(res, "slice")
     empty_rate = res["rate"]
     print(f"{bench.METRIC} = {empty_rate:.1f} playouts/s "
           f"(B={SLICE_BATCH} x {SLICE_PLAYOUTS} playouts, empty roots, "
           f"{res['searches'] - 1} timed searches in {res['seconds']:.3f} s)  [{card}]")
+    phase_done("slice")
 
     # ---- 6. midgame roots ----
     phase("midgame roots")
@@ -395,6 +527,7 @@ def main():
     print(f"midgame roots: {marked} of {SLICE_BATCH} boards with ladder marks, equal "
           f"to the CPU twin's; {res['rate']:.1f} playouts/s from midgame roots "
           f"({res['seconds']:.3f} s) vs {empty_rate:.1f} from empty roots  [{card}]")
+    phase_done("midgame roots")
 
     # ---- 7. f32 search parity ----
     phase("f32 search parity")
@@ -434,6 +567,330 @@ def main():
           f"with ladder marks")
     print(f"root NetEvals max abs err card vs CPU: {ev_err:.3g} (limit {EVAL_ATOL})")
     print(f"lanes with identical root visit vectors: {same:.3f} of 8")
+    phase_done("f32 search parity")
+
+    from sayuri_tpu_torch.game import board as TB
+    from sayuri_tpu_torch.mcts import rollout as R
+    from sayuri_tpu_torch.mcts.core import NetEvals
+    from sayuri_tpu_torch.models.evaluator import make_dummy_eval_fn
+    from sayuri_tpu_torch.selfplay import randomize as RZ
+
+    def need(launches, tag, exact=None, some=()):
+        """Raise unless each counter of `exact` has exactly its count and
+        each kernel named in `some` was launched at all."""
+        for k, v in (exact or {}).items():
+            if launches[k] != v:
+                raise RuntimeError(f"{tag}: {k} launched {launches[k]} times, expected {v}")
+        for k in some:
+            if not launches[k]:
+                raise RuntimeError(f"{tag}: {k} was never launched")
+
+    # ---- 8. step-legal parity ----
+    phase("step-legal parity")
+    step_rec = {"cells": 0, "max_abs_err": 0}
+    for tag, args_cpu in (
+        ("random 19x19", (s19.stones, s19.size, s19.ko, s19.to_move, a19)),
+        ("pass-dead goldens 9x9", (*gold, legal_actions(torch, np, gold, seed=5))),
+    ):
+        args = tuple(x.to(dev).contiguous() for x in args_cpu)
+        want = TA.step_and_legal_plain(*args_cpu)
+        got = TA.step_and_legal(*args)
+        torch.cuda.synchronize()
+        cells, err = compare(torch, got, want, f"step_and_legal {tag}")
+        step_rec["cells"] += cells
+        step_rec["max_abs_err"] = max(step_rec["max_abs_err"], err)
+        print(f"step_and_legal {tag}: {cells} outputs equal")
+        if tag.startswith("random"):
+            args256, out256, want256 = args, got, want
+    step_rec["nbytes"] = tensor_bytes(torch, (args256, out256))
+    step_rec["ops"] = OPS_PER_CELL * args256[0].numel()
+    step_rec["ms"] = time_card(torch, TA.step_and_legal, args256)
+    step_rec["plain_ms"] = time_card(torch, TA.step_and_legal_plain, args256, iters=3)
+    reps = ENV_BATCH // PARITY_B
+    args_env = tuple(x.repeat((reps,) + (1,) * (x.ndim - 1)).contiguous() for x in args256)
+    want_env = {k: v.repeat((reps,) + (1,) * (v.ndim - 1)) for k, v in want256.items()}
+    cells, _ = compare(torch, TA.step_and_legal(*args_env), want_env,
+                       f"step_and_legal B={ENV_BATCH}")
+    step_rec["cells"] += cells
+    print(f"step_and_legal B={ENV_BATCH} (the {PARITY_B} positions tiled {reps} "
+          f"times): {cells} outputs equal the tiled plain output")
+    ms_env = time_card(torch, TA.step_and_legal, args_env)
+    env_nbytes = tensor_bytes(torch, (args_env, want_env))
+    step_rec["by_shape"] = [{"boards": ENV_BATCH, "ms": ms_env,
+                             "bound_ms": bound(env_nbytes, OPS_PER_CELL
+                                               * args_env[0].numel())[0]}]
+    rec["step_and_legal"] = step_rec
+    print(f"step_and_legal 19x19: kernel {step_rec['ms']:.4f} ms at B={PARITY_B}, "
+          f"{ms_env:.4f} ms at B={ENV_BATCH}; plain torch on card "
+          f"{step_rec['plain_ms']:.2f} ms at B={PARITY_B}  [{card}]")
+
+    reset_counts()
+    env_res = bench.bench_env_steps(ENV_BATCH, ENV_STEPS, device=dev, iters=ENV_RUNS)
+    torch.cuda.synchronize()
+    env_launches = counts()
+    need(env_launches, "env steps",
+         exact={"step_and_legal": (1 + ENV_STEPS) * env_res["rollouts"]})
+    others = {k: v for k, v in env_launches.items() if v and k != "step_and_legal"}
+    if others:
+        raise RuntimeError(f"env steps: other kernels launched {others}")
+    path_launches["step_and_legal"] = ("env steps", env_launches["step_and_legal"])
+    step_rec["by_shape"][0]["launches"] = env_launches["step_and_legal"]
+    if not bool((env_res["states"].move_count == 1 + ENV_STEPS).all()):
+        raise RuntimeError("env steps: move counts did not advance on every lane")
+    print(f"launches in the env-steps run: step_and_legal "
+          f"{env_launches['step_and_legal']} ({env_res['rollouts']} runs of 1 + "
+          f"{ENV_STEPS} steps); every lane at move {1 + ENV_STEPS}")
+    real_step_legal = TA.step_and_legal
+    TA.step_and_legal = TA.step_and_legal_plain
+    try:
+        env_plain = GoEnv(n=19)
+        plain_final = bench.env_steps_rollout(
+            env_plain, env_plain.new_batch(ENV_BATCH, komi=7.5, device=dev),
+            ENV_STEPS, ENV_RUNS)
+    finally:
+        TA.step_and_legal = real_step_legal
+    cells, _ = compare(torch, env_res["states"].fields(), plain_final.fields(),
+                       "env steps final GoState vs the plain rollout")
+    print(f"env steps: the last run's final GoState equals the same rollout through "
+          f"step_and_legal_plain ({cells} values)")
+    print(f"{bench.ENV_METRIC} = {env_res['rate']:.1f} steps/s (B={ENV_BATCH} x "
+          f"{ENV_STEPS} steps, {ENV_RUNS} timed runs in {env_res['seconds']:.3f} s)  [{card}]")
+    phase_done("step-legal parity")
+
+    # ---- 9. board fixpoints ----
+    phase("board fixpoints")
+    env19 = GoEnv(n=19)
+    mask19 = TB.board_mask(s19.size, 19)
+    empty, black, white = (((s19.stones == c) & mask19) for c in (0, 1, 2))
+    colours = torch.stack([empty, black, white])                  # [3, B, n, n]
+    reach_allowed = torch.stack([black, white, empty])
+    reach_seeds = torch.stack([black & TB.nbr_or(empty), white & TB.nbr_or(empty),
+                               empty & TB.nbr_or(black)])
+    nested = colours[1:].contiguous()                              # [2, B, n, n]
+    nested_seeds = torch.from_numpy(np.random.RandomState(9).rand(*nested.shape) < 0.03)
+    for name in ("flood", "chain_labels"):
+        rec[name] = {"cells": 0, "max_abs_err": 0}
+    for tag, m in (("colour masks", colours), ("nested", nested)):
+        cells, err = compare(torch, {"labels": FK.chain_labels(m.to(dev))},
+                             {"labels": TB.chain_labels_plain(m)}, f"chain_labels {tag}")
+        rec["chain_labels"]["cells"] += cells
+        print(f"chain_labels {tag} {tuple(m.shape)}: {cells} labels equal")
+    for tag, sd, al in (("reach seeds", reach_seeds, reach_allowed),
+                        ("nested", nested_seeds, nested)):
+        cells, err = compare(torch, {"flood": FK.flood(sd.to(dev), al.to(dev))},
+                             {"flood": TB.flood_plain(sd, al)}, f"flood {tag}")
+        rec["flood"]["cells"] += cells
+        print(f"flood {tag} {tuple(al.shape)}: {cells} cells equal")
+    for name, fn, plain, a in (
+        ("chain_labels", FK.chain_labels, TB.chain_labels_plain, (black.to(dev),)),
+        ("flood", FK.flood, TB.flood_plain,
+         (reach_seeds[0].to(dev).contiguous(), black.to(dev))),
+    ):
+        r = rec[name]
+        r["nbytes"] = tensor_bytes(torch, (a, fn(*a)))
+        r["ops"] = OPS_PER_CELL * a[0].numel()
+        r["ms"] = time_card(torch, fn, a)
+        r["plain_ms"] = time_card(torch, plain, a, iters=3)
+        print(f"{name} B={PARITY_B} 19x19: kernel {r['ms']:.4f} ms, plain torch on card "
+              f"{r['plain_ms']:.2f} ms  [{card}]")
+
+    d19, da19 = s19.to(dev), a19.to(dev)
+    shape_spy.install()
+    shape_runs = []
+    queries = ("legal_action_mask", "step", "superko_action_mask", "final_score",
+               "ownership")
+
+    def run_queries(st, acts):
+        return {
+            "legal_action_mask": env19.legal_action_mask(st),
+            "step": env19.step(st, acts).fields(),
+            "superko_action_mask": env19.superko_action_mask(st),
+            "final_score": env19.final_score(st),
+            "ownership": env19.ownership(st),
+        }
+
+    reset_counts()
+    t0 = time.monotonic()
+    q_card = run_queries(d19, da19)
+    torch.cuda.synchronize()
+    rules_s = time.monotonic() - t0
+    rules_launches = counts()
+    need(rules_launches, "rules queries", some=("flood", "chain_labels"))
+    flood_paths = {"rules queries": rules_launches}
+    shape_runs.append(dict(shape_spy.counts))
+    sub = s19.map(lambda x: x[:32])
+    q_cpu = run_queries(s19, a19)
+    q_cpu["superko_action_mask"] = env19.superko_action_mask(sub)
+    q_card["superko_action_mask"] = q_card["superko_action_mask"][:32]
+    for k in queries:
+        got, want = q_card[k], q_cpu[k]
+        if not isinstance(want, dict):
+            got, want = {k: got}, {k: want}
+        cells, err = compare(torch, got, want, f"{k} card vs CPU")
+        print(f"{k}: {cells} values equal to the plain CPU run")
+    if not bool(q_cpu["superko_action_mask"].any()):
+        print("superko_action_mask: no violation in these 32 lanes")
+    superko_ms = time_card(torch, env19.superko_action_mask, (d19,), iters=3, warmup=1)
+    print(f"launches in the rules-queries run: flood {rules_launches['flood']}, "
+          f"chain_labels {rules_launches['chain_labels']}, board_analysis "
+          f"{rules_launches['board_analysis']}; all five queries at B={PARITY_B} took "
+          f"{rules_s * 1e3:.1f} ms (first call)")
+    print(f"superko_action_mask B={PARITY_B} 19x19 ({PARITY_B * 361} boards in one "
+          f"play_move): {superko_ms:.3f} ms  [{card}]")
+    phase_done("board fixpoints")
+
+    # ---- 10. rollout ----
+    phase("rollout")
+    played = []
+    real_pick = R.random_move_batch
+
+    def spy_pick(*a):
+        mv = real_pick(*a)
+        played.append(mv)
+        return mv
+
+    R.random_move_batch = spy_pick
+    try:
+        reset_counts()
+        t0 = time.monotonic()
+        own, score = R.mc_ownership(env19, d19, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        mc_s = time.monotonic() - t0
+        mc_launches = counts()
+    finally:
+        R.random_move_batch = real_pick
+    need(mc_launches, "mc_ownership", exact={"step_and_analyze": len(played)},
+         some=("flood", "chain_labels"))
+    flood_paths["mc_ownership"] = mc_launches
+    shape_runs.append(dict(shape_spy.counts))
+    k = ROLLOUT_REPLAY_LANES
+    roots_k = s19.map(lambda x: x[:k])
+    st = roots_k
+    for mv in played:
+        st = env19.step(st, mv[:k].cpu())
+    ended = int(st.terminated.sum())
+    want_own = TB.area_ownership(st.stones, st.size).reshape(k, -1).to(torch.float32)
+    want_score = want_own.sum(-1) - env19.komi_with_penalty(roots_k)
+    cells, _ = compare(torch, {"own": own[:k], "score": score[:k]},
+                       {"own": want_own, "score": want_score}, "mc_ownership replay")
+    board_moves = sum(int((mv < 361).sum()) for mv in played)
+    print(f"mc_ownership B={PARITY_B} 19x19, cap {2 * 361 + 1}: {len(played)} batch "
+          f"steps, {board_moves / PARITY_B:.1f} board moves a lane, {mc_s:.3f} s "
+          f"[{card}]; launches {({n: c for n, c in mc_launches.items() if c})}")
+    print(f"mc_ownership replay: {cells} ownership and score values of {k} lanes equal "
+          f"the plain CPU env's ({ended} of the {k} playouts ended by two passes)")
+
+    wrapped = R.wrap_eval_with_rollout(env19, make_dummy_eval_fn(env19),
+                                       max_moves=WRAPPED_MAX_MOVES)
+    m = MCTS(env19, wrapped, SearchConfig(max_nodes=WRAPPED_PLAYOUTS + 8, max_depth=16))
+    reset_counts()
+    t0 = time.monotonic()
+    tree = m.run(m.init_tree(d19), WRAPPED_PLAYOUTS)
+    torch.cuda.synchronize()
+    wrapped_s = time.monotonic() - t0
+    wrapped_launches = counts()
+    need(wrapped_launches, "wrapped search", some=("flood", "chain_labels"))
+    flood_paths["wrapped search"] = wrapped_launches
+    shape_runs.append(dict(shape_spy.counts))
+    if not bool((tree.visits[:, 0] == WRAPPED_PLAYOUTS + 1).all()):
+        raise RuntimeError(f"wrapped search: root visits "
+                           f"{tree.visits[:, 0].unique().tolist()}")
+    print(f"rollout-wrapped search B={PARITY_B}, {WRAPPED_PLAYOUTS} playouts, playout "
+          f"cap {WRAPPED_MAX_MOVES} moves: root visits {WRAPPED_PLAYOUTS + 1}, "
+          f"{wrapped_s:.3f} s [{card}]; launches "
+          f"{({n: c for n, c in wrapped_launches.items() if c})}")
+    phase_done("rollout")
+
+    # ---- 11. randomize ----
+    phase("randomize")
+
+    class RecordingEnv(GoEnv):
+        """GoEnv whose step keeps the actions it is given."""
+
+        def __init__(self, n):
+            super().__init__(n=n)
+            self.actions = []
+
+        def step(self, states, actions):
+            self.actions.append(actions)
+            return super().step(states, actions)
+
+    dist = RZ.parse_queries(["bkp:19:7.5:1.0", "bhp:19:4:0.5"], random_opening_prob=1.0)
+    net19 = SayuriNet(NetConfig(boardsize=19)).init_random(0).to(dev).eval()
+    rec_env = RecordingEnv(19)
+    randomizer = RZ.GameRandomizer(
+        rec_env, dist, make_eval_fn(env19, net19, compute_dtype=torch.bfloat16))
+    reset_counts()
+    t0 = time.monotonic()
+    prepared = randomizer.prepare(PARITY_B, 0, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.monotonic() - t0
+    rz_launches = counts()
+    steps = len(rec_env.actions)
+    need(rz_launches, "prepare", exact={"flood": 2 * steps, "board_analysis": steps})
+    flood_paths["prepare"] = rz_launches
+    shape_runs.append(dict(shape_spy.counts))
+    shape_spy.remove()
+    replay = iter([a.cpu() for a in rec_env.actions])
+
+    def replay_eval(states, ctx=None):
+        """One-hot priors on the move the card sampled at this step (the
+        Gumbel draw cannot overturn a one-hot policy)."""
+        b = states.stones.shape[0]
+        z = torch.zeros(b)
+        return NetEvals(
+            priors=torch.nn.functional.one_hot(next(replay).long(), 362).float(),
+            black_wl=z + 0.5, draw=z, black_score=z, black_ownership=torch.zeros((b, 361)))
+
+    cpu_prep = RZ.GameRandomizer(GoEnv(n=19), dist, replay_eval).prepare(
+        PARITY_B, 0, device="cpu")
+    cells, _ = compare(torch, prepared.fields(), cpu_prep.fields(), "prepare replay")
+    if not bool(env19.legal_action_mask(prepared)[:, :-1].any(-1).all()):
+        raise RuntimeError("prepare: a lane has no legal board move")
+    hcp = prepared.handicap.cpu()
+    print(f"prepare B={PARITY_B} 19x19, b6c96 bf16 policy: {steps} policy steps, "
+          f"{int((hcp > 0).sum())} handicap lanes (max {int(hcp.max())}), move counts "
+          f"{int(prepared.move_count.min())}-{int(prepared.move_count.max())}, "
+          f"{prep_s:.3f} s [{card}]; launches "
+          f"{({n: c for n, c in rz_launches.items() if c})}")
+    print(f"prepare replay on the CPU: {cells} GoState values equal; every lane has a "
+          f"legal move")
+    for name in ("flood", "chain_labels"):
+        path_launches[name] = (" + ".join(flood_paths),
+                               sum(c[name] for c in flood_paths.values()))
+    phase_done("randomize")
+
+    # ---- 12. fixpoint shapes ----
+    phase("fixpoint shapes")
+    shape_launches = {}
+    for run in shape_runs:
+        for key, c in run.items():
+            shape_launches[key] = shape_launches.get(key, 0) + c
+    plains = {"flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
+    for name in plains:
+        seen = sum(c for (k, _), c in shape_launches.items() if k == name)
+        if seen != path_launches[name][1]:
+            raise RuntimeError(f"{name}: the shape spy saw {seen} launches, the "
+                               f"counter {path_launches[name][1]}")
+        rec[name]["by_shape"] = []
+    for (name, boards), n_launch in sorted(shape_launches.items()):
+        a = shape_spy.inputs[(name, boards)]
+        fn = getattr(FK, name)
+        got = fn(*a)
+        cells, err = compare(torch, {name: got}, {name: plains[name](*a)},
+                             f"{name} at {boards} boards")
+        r = rec[name]
+        r["cells"] += cells
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        ms = time_card(torch, fn, a, iters=10)
+        b_ms = bound(tensor_bytes(torch, (a, got)), OPS_PER_CELL * a[-1].numel())[0]
+        r["by_shape"].append({"boards": boards, "launches": n_launch, "ms": ms,
+                              "bound_ms": b_ms})
+        print(f"{name} at {boards} boards {tuple(a[-1].shape)}: {n_launch} launches on "
+              f"the main paths, kernel {ms:.4f} ms, bound {b_ms:.6f} ms, {cells} cells "
+              f"equal the plain version; (kernel - bound) x launches "
+              f"{(ms - b_ms) * n_launch:.3f} ms  [{card}]")
+    phase_done("fixpoint shapes")
 
     # ---- result ----
     kernels = []
@@ -443,17 +900,27 @@ def main():
         ("ladder_prep", "analysis.cu", "sayuri_tpu/ops/analysis.py:718"),
         ("run_greedy", "ladder.cu", "sayuri_tpu/ops/ladder_kernel.py:743"),
         ("run_chases", "ladder.cu", "sayuri_tpu/ops/ladder_kernel.py:824"),
+        ("step_and_legal", "analysis.cu", "sayuri_tpu/ops/analysis.py:854"),
+        ("flood", "flood.cu", "sayuri_tpu/ops/flood.py:59"),
+        ("chain_labels", "flood.cu", "sayuri_tpu/ops/flood.py:76"),
     ):
         r = rec[name]
+        path, n_launches = path_launches[name]
+        bound_ms, bound_by = bound(r["nbytes"], r["ops"])
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"sayuri_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": n_launches,
+            "path": path,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,13 @@ prints ONE JSON line with the rate, the device name and its power limit.
 
 profiles one search: device busy/idle share, host time per search stage,
 the top kernels by device time (and a chrome trace when a path is given).
+
+    python -m sayuri_tpu_torch.bench envsteps [batch] [steps]
+
+times the raw env: `batch` 19x19 games (default 4096) stepped `steps`
+times (default 64) through ``GoEnv.step_batch_light`` (one light step
+kernel launch a step), each move the legal cell of highest integer hash,
+chained on the card; prints ONE JSON line, ``env_steps_per_s_19x19``.
 A run without a CUDA device fails; it never falls back to the CPU.
 """
 
@@ -28,6 +35,8 @@ import torch
 from torch.profiler import record_function
 
 METRIC = "mcts_playouts_per_s_19x19_b6c96"
+ENV_METRIC = "env_steps_per_s_19x19"
+_M32 = 0xFFFFFFFF
 
 
 def device_info() -> str:
@@ -101,6 +110,60 @@ def bench_playouts(batch: int = 256, playouts: int = 96, device="cuda",
         "mcts": mcts,
         "states": states,
     }
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 x < 2**32 and a 32-bit constant c, in
+    two 16-bit halves of c so that no product leaves int64 (torch has no
+    full uint32 arithmetic on CUDA)."""
+    lo = (x * (c & 0xFFFF)) & _M32
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def env_steps_rollout(env, states, steps: int, seed: int):
+    """The env-steps loop: a pass pre-step for the first legal mask, then
+    `steps` light steps, each lane playing the legal cell with the largest
+    integer hash of (lane, step, seed, cell) (pass where none is legal; the
+    JAX bench's hash). Returns the final states."""
+    n = env.n
+    nn = n * n
+    b = states.stones.shape[0]
+    dev = states.stones.device
+    states, legal = env.step_batch_light(
+        states, torch.full((b,), nn, dtype=torch.int32, device=dev))
+    lane = _mul32(torch.arange(b, device=dev)[:, None], 2654435761)
+    cell = _mul32(torch.arange(nn, device=dev)[None, :], 2246822519)
+    for i in range(steps):
+        h = lane ^ ((i * 0x9E3779B9 + seed) & _M32) ^ cell
+        h = h ^ (h >> 15)
+        h = _mul32(h, 2654435761)
+        h = h ^ (h >> 13)
+        acts = torch.where(legal, h, 0).argmax(-1)
+        acts = torch.where(legal.any(-1), acts, nn).to(torch.int32)
+        states, legal = env.step_batch_light(states, acts)
+    return states
+
+
+def bench_env_steps(batch: int = 4096, steps: int = 64, device="cuda",
+                    iters: int = 3):
+    """Time `iters` env-steps rollouts (seeds 1..iters) of `batch` empty
+    19x19 boards after one warm-up rollout (seed 0). Returns a dict with
+    the rate (steps of all lanes per second), the seconds, the number of
+    rollouts run and the last final states."""
+    from sayuri_tpu_torch.game.state import GoEnv
+
+    env = GoEnv(n=19)
+    states = env.new_batch(batch, komi=7.5, device=device)
+    env_steps_rollout(env, states, steps, 0)
+    _sync(device)
+    t0 = time.monotonic()
+    for i in range(iters):
+        out = env_steps_rollout(env, states, steps, i + 1)
+    _sync(device)
+    dt = time.monotonic() - t0
+    return {"rate": iters * batch * steps / dt, "seconds": dt,
+            "rollouts": 1 + iters, "states": out}
 
 
 def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
@@ -188,6 +251,19 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("bench: no CUDA device; this benchmark runs on the card only")
     args = sys.argv[1:]
+    if args and args[0] == "envsteps":
+        batch = int(args[1]) if len(args) > 1 else 4096
+        steps = int(args[2]) if len(args) > 2 else 64
+        res = bench_env_steps(batch, steps)
+        print(json.dumps({
+            "metric": ENV_METRIC,
+            "value": res["rate"],
+            "unit": "steps/s",
+            "batch": batch,
+            "steps": steps,
+            "device": device_info(),
+        }))
+        return
     if args and args[0] == "profile":
         batch = int(args[1]) if len(args) > 1 else 256
         playouts = int(args[2]) if len(args) > 2 else 96

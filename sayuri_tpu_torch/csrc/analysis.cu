@@ -1,11 +1,13 @@
 // Board step + analysis kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces three Pallas TPU kernels of sayuri_tpu/ops/analysis.py:
+// Replaces four Pallas TPU kernels of sayuri_tpu/ops/analysis.py:
 //   step_analysis_kernel  <- _step_analysis_kernel (entry step_and_analyze_tpu)
 //   board_analysis_kernel <- _analysis_kernel      (entry board_analysis_tpu)
 //   ladder_prep_kernel    <- _ladder_prep_kernel   (entry ladder_prep_tpu)
+//   step_legal_kernel     <- _step_legal_kernel    (entry step_and_legal_tpu)
 // The first two share one __device__ routine, analyze_board(), as the
-// Pallas pair shares _analyze_board; all three share the labelling.
+// Pallas pair shares _analyze_board; the two step kernels share
+// play_and_hash(); all four share the labelling (board.cuh).
 //
 // What bounds it on this card: not bytes (a board is 361 bytes in and a few
 // KB out) but the latency of serial, data-dependent fixpoint sweeps: chain
@@ -29,43 +31,12 @@
 // refinement with at most INNER_SLOTS regions per board (overflow falls
 // back to the unrefined eye).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "board.cuh"
 
 namespace {
 
-constexpr int MAXNN = 384;        // 19*19 = 361 cells, rounded up to warps
-constexpr int BIG = 0x3fffffff;   // "no label" / "no cell"
 constexpr int NUM_LIBS = 5;
 constexpr int INNER_SLOTS = 6;
-
-struct Geo {
-  int t, n, nn, y, x;
-  bool cell;            // thread owns a cell of the n x n buffer
-  int nb[4];            // up, down, left, right (-1 off the buffer)
-  int dg[4];            // up-left, up-right, down-left, down-right
-};
-
-__device__ __forceinline__ Geo make_geo(int n) {
-  Geo g;
-  g.t = threadIdx.x;
-  g.n = n;
-  g.nn = n * n;
-  g.cell = g.t < g.nn;
-  g.y = g.t / n;
-  g.x = g.t % n;
-  bool up = g.cell && g.y > 0, dn = g.cell && g.y < n - 1;
-  bool lf = g.cell && g.x > 0, rt = g.cell && g.x < n - 1;
-  g.nb[0] = up ? g.t - n : -1;
-  g.nb[1] = dn ? g.t + n : -1;
-  g.nb[2] = lf ? g.t - 1 : -1;
-  g.nb[3] = rt ? g.t + 1 : -1;
-  g.dg[0] = (up && lf) ? g.t - n - 1 : -1;
-  g.dg[1] = (up && rt) ? g.t - n + 1 : -1;
-  g.dg[2] = (dn && lf) ? g.t + n - 1 : -1;
-  g.dg[3] = (dn && rt) ? g.t + n + 1 : -1;
-  return g;
-}
 
 // Shared scratch for one board. All per-root arrays are indexed by the
 // root's flat cell index.
@@ -92,38 +63,21 @@ struct Smem {
   int scal[4];
 };
 
+// The light step kernel's scratch: what play_and_hash() and one
+// liberty count per chain root need, 5.8 KB instead of Smem's 29 KB.
+struct SmemStep {
+  int8_t st[MAXNN];
+  uint8_t msk[MAXNN];
+  uint8_t fa[MAXNN];         // class map (captures, then child chains)
+  int lbl_s[MAXNN];          // chain labels
+  int ra[MAXNN];             // per-root: has a liberty, then liberty count
+  int rb[MAXNN];             // rb[0]: smallest captured cell
+  int scal[4];               // [1] new ko, [2..3] hash words
+};
+
 // ---------------------------------------------------------------------------
 // fixpoint primitives (every thread of the block must call them)
 // ---------------------------------------------------------------------------
-
-// Label the 4-connected components of cells whose class `cls` is non-zero,
-// connecting only neighbours of equal class (a 0/1 mask is one class);
-// label = min flat index, BIG off-component. In-place relaxation with pointer jumping: values only
-// decrease and always name a cell of the same component, so any
-// interleaving converges, and a pass with no write is a true fixpoint.
-__device__ void label_by_class(const Geo& g, const volatile uint8_t* cls,
-                               volatile int* lbl) {
-  uint8_t c = g.cell ? cls[g.t] : 0;
-  if (g.cell) lbl[g.t] = c ? g.t : BIG;
-  bool changed = true;
-  while (__syncthreads_or(changed)) {
-    changed = false;
-    if (c) {
-      int l = lbl[g.t];
-      int best = l;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        int q = g.nb[d];
-        if (q >= 0 && cls[q] == c) best = min(best, lbl[q]);
-      }
-      best = min(best, lbl[best]);
-      if (best < l) {
-        lbl[g.t] = best;
-        changed = true;
-      }
-    }
-  }
-}
 
 // out = cells of `allowed` connected within `allowed` to a cell of `seed`.
 // seed/allowed are read for this thread's cell; `out` must differ from the
@@ -478,7 +432,8 @@ __device__ void analyze_board(const Geo& g, Smem& s, int tm, int ko,
   }
 }
 
-__device__ __forceinline__ void load_board(const Geo& g, Smem& s,
+template <class S>
+__device__ __forceinline__ void load_board(const Geo& g, S& s,
                                            const int8_t* stones, int size) {
   if (g.cell) {
     s.st[g.t] = stones[g.t];
@@ -487,38 +442,21 @@ __device__ __forceinline__ void load_board(const Geo& g, Smem& s,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(MAXNN)
-board_analysis_kernel(const int8_t* __restrict__ stones,
-                      const int* __restrict__ size, const int* __restrict__ ko,
-                      const int* __restrict__ to_move, bool* legal, int* libs,
-                      int* own, bool* safe, int* sown, int n) {
-  __shared__ Smem s;
-  const Geo g = make_geo(n);
-  const long b = blockIdx.x;
-  const long off = b * g.nn;
-  load_board(g, s, stones + off, size[b]);
-  analyze_board(g, s, to_move[b], ko[b], legal + off, libs + off, own + off,
-                safe + off, sown + off);
-}
-
-__global__ void __launch_bounds__(MAXNN)
-step_analysis_kernel(const int8_t* __restrict__ stones,
-                     const int* __restrict__ size, const int* __restrict__ ko,
-                     const int* __restrict__ to_move,
-                     const int* __restrict__ action,
-                     const int* __restrict__ zob, int8_t* new_stones,
-                     int* ncap_out, int* ko_out, int* hash_out, bool* legal,
-                     int* libs, int* own, bool* safe, int* sown, int n) {
-  __shared__ Smem s;
-  const Geo g = make_geo(n);
+// ---------------------------------------------------------------------------
+// Play `action` for `tm` on the board in s.st (board.py play_move
+// semantics: place, remove opponent chains left without a liberty, simple
+// ko) and hash the child (XOR of the per-cell Zobrist keys). A pass (action
+// outside [0, nn)) leaves the board as loaded. Writes the child's stones,
+// capture count, ko and hash words of board `b`; leaves the child in s.st
+// and returns its ko vertex. Uses s.fa, s.lbl_s, s.ra, s.rb and s.scal.
+// ---------------------------------------------------------------------------
+template <class S>
+__device__ int play_and_hash(const Geo& g, S& s, int tm, int v,
+                             const int* __restrict__ zob, long b,
+                             int8_t* new_stones, int* ncap_out, int* ko_out,
+                             int* hash_out) {
   const int t = g.t;
-  const long b = blockIdx.x;
   const long off = b * g.nn;
-  load_board(g, s, stones + off, size[b]);
-
-  // ---- play the move (board.py play_move semantics) ----
-  const int tm = to_move[b];
-  const int v = action[b];
   const bool is_pass = v >= g.nn || v < 0;
   const int8_t own_c = (int8_t)(tm + 1), opp_c = (int8_t)(2 - tm);
   if (!is_pass && t == v && s.msk[t]) s.st[t] = own_c;
@@ -564,9 +502,8 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
   if (is_pass && t == 0) s.scal[1] = -1;
   __syncthreads();
   const int ko2 = s.scal[1];
-  // a pass leaves the board as loaded (nothing was placed or captured)
 
-  // ---- Zobrist hash of the child: XOR of the per-cell keys ----
+  // Zobrist hash of the child: XOR of the per-cell keys
   unsigned w0 = 0, w1 = 0;
   if (g.cell) {
     int8_t c = s.st[t];
@@ -601,10 +538,120 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
     hash_out[2 * b + 1] = s.scal[3];
   }
   __syncthreads();
+  return ko2;
+}
+
+__global__ void __launch_bounds__(MAXNN)
+board_analysis_kernel(const int8_t* __restrict__ stones,
+                      const int* __restrict__ size, const int* __restrict__ ko,
+                      const int* __restrict__ to_move, bool* legal, int* libs,
+                      int* own, bool* safe, int* sown, int n) {
+  __shared__ Smem s;
+  const Geo g = make_geo(n);
+  const long b = blockIdx.x;
+  const long off = b * g.nn;
+  load_board(g, s, stones + off, size[b]);
+  analyze_board(g, s, to_move[b], ko[b], legal + off, libs + off, own + off,
+                safe + off, sown + off);
+}
+
+__global__ void __launch_bounds__(MAXNN)
+step_analysis_kernel(const int8_t* __restrict__ stones,
+                     const int* __restrict__ size, const int* __restrict__ ko,
+                     const int* __restrict__ to_move,
+                     const int* __restrict__ action,
+                     const int* __restrict__ zob, int8_t* new_stones,
+                     int* ncap_out, int* ko_out, int* hash_out, bool* legal,
+                     int* libs, int* own, bool* safe, int* sown, int n) {
+  __shared__ Smem s;
+  const Geo g = make_geo(n);
+  const long b = blockIdx.x;
+  const long off = b * g.nn;
+  load_board(g, s, stones + off, size[b]);
+
+  const int tm = to_move[b];
+  const int ko2 = play_and_hash(g, s, tm, action[b], zob, b, new_stones,
+                                ncap_out, ko_out, hash_out);
 
   // ---- analysis of the child, side to move flipped ----
   analyze_board(g, s, 1 - tm, ko2, legal + off, libs + off, own + off,
                 safe + off, sown + off);
+}
+
+// ---------------------------------------------------------------------------
+// Light env step (the raw env-stepping path: env-steps bench, rollouts,
+// opening randomization): play and hash as above, then only the child's
+// legality for the side to move after the move. Legality needs each
+// chain's "has a liberty" and "has a second liberty"; here both come from
+// the exact liberty count per chain root (one labelling of both colours,
+// one shared-memory atomic pass), where the TPU kernel propagates a min and
+// a negated min over float labels. Two labellings per board in all, in a
+// 5.8 KB shared struct: residency is set by the 384 threads a block, five
+// blocks per SM.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(MAXNN)
+step_legal_kernel(const int8_t* __restrict__ stones,
+                  const int* __restrict__ size, const int* __restrict__ ko,
+                  const int* __restrict__ to_move,
+                  const int* __restrict__ action,
+                  const int* __restrict__ zob, int8_t* new_stones,
+                  int* ncap_out, int* ko_out, int* hash_out, bool* legal,
+                  int n) {
+  __shared__ SmemStep s;
+  const Geo g = make_geo(n);
+  const int t = g.t;
+  const long b = blockIdx.x;
+  const long off = b * g.nn;
+  load_board(g, s, stones + off, size[b]);
+  const int tm = to_move[b];
+  const int ko2 = play_and_hash(g, s, tm, action[b], zob, b, new_stones,
+                                ncap_out, ko_out, hash_out);
+
+  // child chains of both colours (class = stone colour on the board)
+  const bool m = g.cell && s.msk[t];
+  const int8_t v = g.cell ? s.st[t] : 0;
+  const bool empty = m && v == 0;
+  volatile uint8_t* cls = s.fa;
+  volatile int* libcnt = s.ra;
+  if (g.cell) {
+    cls[t] = m ? (uint8_t)v : 0;
+    libcnt[t] = 0;
+  }
+  __syncthreads();
+  label_by_class(g, cls, s.lbl_s);
+  volatile int* lbl = s.lbl_s;
+  // every empty cell is one liberty of each distinct adjacent chain
+  if (empty) {
+    int seen[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      int q = g.nb[d];
+      int l = (q >= 0 && cls[q]) ? lbl[q] : -1;
+      for (int e = 0; e < d; ++e)
+        if (seen[e] == l) l = -1;
+      seen[d] = l;
+      if (l >= 0) atomicAdd((int*)&libcnt[l], 1);
+    }
+  }
+  __syncthreads();
+  // legal for the side to move in the child (1 - tm): empty, not ko, and an
+  // empty neighbour, an own chain with >= 2 liberties or an opponent chain
+  // in atari next to it
+  const uint8_t own_c = (uint8_t)(2 - tm), opp_c = (uint8_t)(tm + 1);
+  bool ok = false;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    int q = g.nb[d];
+    if (q < 0 || !s.msk[q]) continue;
+    uint8_t c = cls[q];
+    if (c == 0) ok = true;
+    else {
+      int lq = libcnt[lbl[q]];
+      if (c == own_c && lq >= 2) ok = true;
+      if (c == opp_c && lq == 1) ok = true;
+    }
+  }
+  if (g.cell) legal[off + t] = empty && t != ko2 && ok;
 }
 
 // ---------------------------------------------------------------------------
@@ -694,8 +741,6 @@ ladder_prep_kernel(const int8_t* __restrict__ stones,
   legal_white[off + t] = base && (nb_empty || ok_w);
 }
 
-inline int threads_for(int n) { return ((n * n + 31) / 32) * 32; }
-
 }  // namespace
 
 extern "C" int launch_board_analysis(const void* stones, const void* size,
@@ -724,6 +769,21 @@ extern "C" int launch_step_analysis(const void* stones, const void* size,
       (const int*)to_move, (const int*)action, (const int*)zob,
       (int8_t*)new_stones, (int*)ncap, (int*)new_ko, (int*)hash, (bool*)legal,
       (int*)libs, (int*)own, (bool*)safe, (int*)sown, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_step_legal(const void* stones, const void* size,
+                                 const void* ko, const void* to_move,
+                                 const void* action, const void* zob,
+                                 void* new_stones, void* ncap, void* new_ko,
+                                 void* hash, void* legal, int batch, int n,
+                                 void* stream) {
+  if (n < 2 || n * n > MAXNN || batch <= 0) return (int)cudaErrorInvalidValue;
+  step_legal_kernel<<<batch, threads_for(n), 0, (cudaStream_t)stream>>>(
+      (const int8_t*)stones, (const int*)size, (const int*)ko,
+      (const int*)to_move, (const int*)action, (const int*)zob,
+      (int8_t*)new_stones, (int*)ncap, (int*)new_ko, (int*)hash, (bool*)legal,
+      n);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,10 @@ for false-eye life / two-headed dragons: at most INNER_SLOTS regions per
 board get the exact border flood, and the overflow falls back to the
 unrefined eye, as in the JAX package.
 
-All functions take [B, n, n] int8 stones and a [B] (or int) size.
+All functions take [B, n, n] int8 stones and a [B] (or int) size. This is
+the plain twin of the analysis kernels, so it calls the plain fixpoints
+(game/board.py ``chain_labels_plain``, ``flood_plain``) and launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ def pass_alive_area(stones, size, color: int):
     empty_real = (stones == EMPTY) & mask
     opp_real = (stones == 2 - color) & mask
 
-    lbl_r = B.chain_labels(other)            # regions of non-color cells
-    lbl_c = B.chain_labels(own)              # my chains
+    lbl_r = B.chain_labels_plain(other)      # regions of non-color cells
+    lbl_c = B.chain_labels_plain(own)        # my chains
     flat = B.flat_iota(n, dev).expand(b, n, n)
 
     # --- potential vitality: every empty cell of the region touches my
@@ -120,7 +123,7 @@ def pass_alive_area(stones, size, color: int):
     # --- pass-dead opponent regions ---
     blockers = alive_cells | vital_cells
     others2 = mask & ~blockers
-    lbl_r2 = B.chain_labels(others2)
+    lbl_r2 = B.chain_labels_plain(others2)
 
     no_c_side = ~B.nbr_or(blockers)
     corner_c = B.diag_count(blockers)
@@ -137,7 +140,7 @@ def pass_alive_area(stones, size, color: int):
         B.shift(mask, 1, 0, False) & B.shift(mask, -1, 0, False)
         & B.shift(mask, 0, 1, False) & B.shift(mask, 0, -1, False)
     )
-    border_blockers = B.flood(blockers & edge, blockers)
+    border_blockers = B.flood_plain(blockers & edge, blockers)
     corner_maybe = B.diag_count(blockers & ~border_blockers)
     rescuable = cand_eye & ~corner_ok & torch.where(
         interior, corner_c - corner_maybe <= 1, corner_c == corner_maybe
@@ -151,7 +154,7 @@ def pass_alive_area(stones, size, color: int):
             slot_root >= 0
         )[:, :, None, None]                                  # [B, K, n, n]
         allowed = mask[:, None] & ~in_region
-        outer = B.flood(allowed & edge[:, None], allowed)
+        outer = B.flood_plain(allowed & edge[:, None], allowed)
         inner = allowed & ~outer
         cc = B.diag_count(blockers[:, None] & ~inner)
         ok2 = torch.where(interior[:, None], cc <= 1, cc == 0)
@@ -177,7 +180,7 @@ def safe_and_ownership(stones, size):
     the score-area ownership."""
     pa_b = pass_alive_area(stones, size, 0)
     pa_w = pass_alive_area(stones, size, 1)
-    own = B.area_ownership(stones, size)
+    own = B.area_ownership(stones, size, plain=True)
     own = torch.where(pa_b, 1, own)
     own = torch.where(pa_w, -1, own)
     return pa_b | pa_w, own

@@ -14,8 +14,16 @@ takes any number of leading batch dimensions):
 
 ``size`` is an int or a tensor of the leading shape: smaller boards live in
 the top-left corner of the fixed ``n x n`` buffer with an on-board mask.
-These are the plain versions behind the CUDA analysis kernels' CPU twins
-(ops/analysis.py); nothing here launches a kernel.
+
+Kernels: ``chain_labels`` and ``flood`` dispatch to ops/flood.py, which
+launches the labels and flood kernels for CUDA tensors (one launch over all
+leading dimensions) and runs the plain versions ``chain_labels_plain`` and
+``flood_plain`` for CPU tensors. ``reach``, ``legal_moves``, ``play_move``
+and ``area_ownership`` go through the dispatching pair, or through the
+plain pair with ``plain=True``: the plain twins of the kernels
+(ops/analysis.py, game/analysis.py) call the plain versions by name, so
+they never run the kernels they check. Everything else here is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -88,9 +96,10 @@ def diag_count(m):
 # connectivity
 # ---------------------------------------------------------------------------
 
-def chain_labels(stone_mask):
+def chain_labels_plain(stone_mask):
     """Label each 4-connected component of `stone_mask` by the min flat
-    index of its cells; -1 off-component. int64 [..., n, n]."""
+    index of its cells; -1 off-component. int64 [..., n, n]. Label
+    propagation with pointer jumping, one host sync per sweep."""
     n = stone_mask.shape[-1]
     nn = n * n
     lead = stone_mask.shape[:-2]
@@ -132,17 +141,32 @@ def gather_roots(per_root, labels):
     return per_root.reshape(-1, n * n).gather(1, idx).view(lead + (n, n))
 
 
-def flood(seed, allowed):
+def flood_plain(seed, allowed):
     """Grow `seed` within `allowed` via 4-connectivity until fixpoint."""
-    labels = chain_labels(allowed)
+    labels = chain_labels_plain(allowed)
     hit = scatter_any(seed & allowed, labels)
     return allowed & gather_roots(hit, labels)
 
 
-def reach(color_mask, target_mask):
+def chain_labels(stone_mask):
+    """chain_labels_plain, as one labels-kernel launch for CUDA tensors."""
+    from sayuri_tpu_torch.ops import flood as FK
+
+    return FK.chain_labels(stone_mask)
+
+
+def flood(seed, allowed):
+    """flood_plain, as one flood-kernel launch for CUDA tensors."""
+    from sayuri_tpu_torch.ops import flood as FK
+
+    return FK.flood(seed, allowed)
+
+
+def reach(color_mask, target_mask, plain: bool = False):
     """Cells of `color_mask` connected (through color_mask) to a cell
     4-adjacent to `target_mask` (Tromp-Taylor reach)."""
-    return flood(color_mask & nbr_or(target_mask), color_mask)
+    flood_fn = flood_plain if plain else flood
+    return flood_fn(color_mask & nbr_or(target_mask), color_mask)
 
 
 def neighbor_labels(labels):
@@ -193,9 +217,9 @@ def _expand(x, like_ndim):
     return x.view(x.shape + (1,) * (like_ndim - x.ndim))
 
 
-def legal_moves(stones, size, to_move, ko):
+def legal_moves(stones, size, to_move, ko, plain: bool = False):
     """[..., n*n] bool pseudo-legal mask (no suicide, respects simple ko;
-    no superko)."""
+    no superko). Both colours' chains are labelled in one call."""
     n = stones.shape[-1]
     mask = board_mask(size, n, stones.device)
     tm = _expand(to_move, stones.ndim).to(stones.device)
@@ -203,8 +227,10 @@ def legal_moves(stones, size, to_move, ko):
     own = (stones == (tm + 1)) & mask
     opp = (stones == (2 - tm)) & mask
 
-    libs_own = chain_liberty_map(own, chain_labels(own), empty)
-    libs_opp = chain_liberty_map(opp, chain_labels(opp), empty)
+    labels_fn = chain_labels_plain if plain else chain_labels
+    lbl_own, lbl_opp = labels_fn(torch.stack([own, opp]))
+    libs_own = chain_liberty_map(own, lbl_own, empty)
+    libs_opp = chain_liberty_map(opp, lbl_opp, empty)
 
     legal = empty & (
         nbr_or(empty) | nbr_or(own & (libs_own >= 2)) | nbr_or(opp & (libs_opp == 1))
@@ -214,7 +240,7 @@ def legal_moves(stones, size, to_move, ko):
     return legal & (torch.arange(n * n, device=stones.device) != ko_t)
 
 
-def play_move(stones, size, color, v):
+def play_move(stones, size, color, v, plain: bool = False):
     """Apply (assumed-legal) board moves; returns
     (new_stones, n_captured int64, new_ko int64) with the leading shape.
 
@@ -235,13 +261,14 @@ def play_move(stones, size, color, v):
     empty1 = (stones1 == EMPTY) & mask
     opp1 = (stones1 == opp_c) & mask
 
-    captured = opp1 & ~reach(opp1, empty1)
+    captured = opp1 & ~reach(opp1, empty1, plain)
     n_cap = captured.flatten(-2).sum(-1)
     stones2 = torch.where(captured, torch.zeros_like(stones1), stones1)
 
     own2 = (stones2 == own_c) & mask
     empty2 = (stones2 == EMPTY) & mask
-    own_group = flood(v_mask, own2)
+    flood_fn = flood_plain if plain else flood
+    own_group = flood_fn(v_mask, own2)
     group_size = own_group.flatten(-2).sum(-1)
     group_libs = (nbr_or(own_group) & empty2).flatten(-2).sum(-1)
 
@@ -255,20 +282,31 @@ def play_move(stones, size, color, v):
 # scoring
 # ---------------------------------------------------------------------------
 
-def area_ownership(stones, size):
-    """[..., n, n] int64 in {-1, 0, +1}: Tromp-Taylor area ownership."""
+def area_ownership(stones, size, plain: bool = False):
+    """[..., n, n] int64 in {-1, 0, +1}: Tromp-Taylor area ownership. Both
+    colours' reach floods run in one call."""
     n = stones.shape[-1]
     mask = board_mask(size, n, stones.device)
     b = (stones == C_BLACK) & mask
     w = (stones == C_WHITE) & mask
     empty = (stones == EMPTY) & mask
-    reach_b = flood(empty & nbr_or(b), empty)
-    reach_w = flood(empty & nbr_or(w), empty)
+    flood_fn = flood_plain if plain else flood
+    reach_b, reach_w = flood_fn(
+        torch.stack([empty & nbr_or(b), empty & nbr_or(w)]),
+        torch.stack([empty, empty]),
+    )
     i64 = torch.int64
     return (
         b.to(i64) - w.to(i64)
         + (reach_b & ~reach_w).to(i64) - (reach_w & ~reach_b).to(i64)
     )
+
+
+def area_score(stones, size, komi):
+    """Black-minus-white Tromp-Taylor score (before sign/result mapping),
+    float32 with the leading shape."""
+    own = area_ownership(stones, size)
+    return own.flatten(-2).sum(-1).to(torch.float32) - komi
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +342,12 @@ def xor_reduce(x, dim: int = -1):
     return x[..., 0]
 
 
+@functools.lru_cache(maxsize=None)
+def _zobrist_stm(n: int, device: str):
+    _, stm = zobrist_numpy(n)
+    return torch.from_numpy(stm.astype(np.int64)).to(device)
+
+
 def position_hash(stones):
     """[..., 2] int64 board-only hash (superko identity), 32 bits a word."""
     n = stones.shape[-1]
@@ -313,3 +357,10 @@ def position_hash(stones):
         flat == C_WHITE, cells[:, C_WHITE], 0
     )                                                      # [..., 2, nn]
     return xor_reduce(vals, -1)
+
+
+def situation_hash(stones, to_move):
+    """[..., 2] int64 position + side-to-move hash (NN cache key)."""
+    stm = _zobrist_stm(stones.shape[-1], str(stones.device))  # [2 words, 2]
+    tm = torch.as_tensor(to_move, device=stones.device).to(torch.int64)
+    return position_hash(stones) ^ stm[:, tm].movedim(0, -1)

@@ -6,6 +6,12 @@ first (the JAX package holds one game and ``vmap``s; here the batch is
 written out). An 8-deep board-history ring feeds the encoder's history
 planes, and positional superko uses a ring of board hashes. Hashes are two
 32-bit words held in int64.
+
+States are born on the card: ``GoEnv.new_batch`` defaults to
+``device="cuda"``, and a CPU caller passes ``device="cpu"``. On the card the
+board fixpoints of ``step``, the legality, superko and ownership queries run
+as the flood and labels kernels (game/board.py -> ops/flood.py), the light
+and analysed steps as one step kernel each (ops/analysis.py).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ class GoEnv:
     # -- construction ------------------------------------------------------
 
     def new_batch(self, batch: int, size=None, komi=7.5, rule=AREA_RULE,
-                  device="cpu") -> GoState:
+                  device="cuda") -> GoState:
         n = self.n
         size = n if size is None else size
         i32 = torch.int32
@@ -108,8 +114,9 @@ class GoEnv:
     # -- core transitions --------------------------------------------------
 
     def step(self, states: GoState, actions) -> GoState:
-        """Apply one action per game (flat vertex or pass) with the plain
-        board functions. Assumes legal actions; terminated games freeze."""
+        """Apply one action per game (flat vertex or pass) with the board
+        functions (two flood launches on the card). Assumes legal actions;
+        terminated games freeze."""
         nn = self.n * self.n
         actions = torch.as_tensor(actions, device=states.stones.device).to(torch.int32)
         is_pass = actions >= self.pass_action
@@ -136,6 +143,20 @@ class GoEnv:
             states.stones, states.size, states.ko, states.to_move, actions
         )
         return self._merge_kernel_step(states, actions, out), out
+
+    def step_batch_light(self, states: GoState, actions):
+        """Batched step + the child's legality only (the raw env-stepping
+        path): ONE light step kernel launch on CUDA, its plain twin on the
+        CPU. Returns (new_states, legal [B, n*n] bool). As the JAX package's
+        kernel branch, `legal` is the child's board legality even on
+        terminated lanes (its CPU branch masks those to False)."""
+        from sayuri_tpu_torch.ops.analysis import step_and_legal
+
+        actions = actions.to(torch.int32)
+        out = step_and_legal(
+            states.stones, states.size, states.ko, states.to_move, actions
+        )
+        return self._merge_kernel_step(states, actions, out), out["legal"]
 
     def _merge_kernel_step(self, states: GoState, actions, out) -> GoState:
         """Fold a step output dict into the full GoState update (history
@@ -197,6 +218,68 @@ class GoEnv:
         ) & ~states.terminated[:, None]
         ones = torch.ones_like(board_legal[:, :1])
         return torch.cat([board_legal, ones], 1)
+
+    def _superko_hits(self, states: GoState, actions) -> torch.Tensor:
+        """[B, K] bool for [B, K] actions: would the action recreate a
+        position of the hash ring (or the current one)? All B*K moves go
+        through one batched play_move. Pass never violates."""
+        nn = self.n * self.n
+        k = actions.shape[1]
+        stones_p, _, _ = B.play_move(
+            states.stones[:, None].expand(-1, k, -1, -1), states.size[:, None],
+            states.to_move[:, None], actions.clamp(max=nn - 1),
+        )
+        h = B.position_hash(stones_p)                      # [B, K, 2]
+        hh = states.hash_history                          # [B, L, 2]
+        valid = (torch.arange(hh.shape[1], device=hh.device)
+                 < states.move_count.clamp(max=self.max_len)[:, None])
+        same = ((h[:, :, None, 0] == hh[:, None, :, 0])
+                & (h[:, :, None, 1] == hh[:, None, :, 1]))  # [B, K, L]
+        hit = (same & valid[:, None]).any(-1) | (h == states.hash[:, None]).all(-1)
+        return hit & (actions < self.pass_action)
+
+    def superko_violation(self, states: GoState, actions) -> torch.Tensor:
+        """[B] bool: would `actions` ([B]) recreate a previous position
+        (positional superko over the hash ring)? Pass never violates."""
+        actions = torch.as_tensor(actions, device=states.stones.device)
+        return self._superko_hits(states, actions.to(torch.int64)[:, None])[:, 0]
+
+    def superko_action_mask(self, states: GoState) -> torch.Tensor:
+        """[B, n*n + 1] bool: True where the action would violate positional
+        superko. Every board action of every lane is played in one batched
+        play_move ([B, n*n] boards: two flood launches on the card); pass
+        is never a violation."""
+        b = states.stones.shape[0]
+        acts = torch.arange(self.pass_action, device=states.stones.device)
+        hits = self._superko_hits(states, acts.expand(b, -1))
+        return torch.cat([hits, torch.zeros_like(hits[:, :1])], 1)
+
+    def final_score(self, states: GoState) -> torch.Tensor:
+        """[B] float32 black-minus-white score under area scoring of the
+        board (pass-alive / pass-dead areas over the reach ownership),
+        minus komi with penalty. The score-area ownership is the analysis
+        kernel's on the card, its plain twin on the CPU. Territory-rule
+        games get no dead-stone removal here (the *_with_helper scoring is
+        not ported)."""
+        from sayuri_tpu_torch.ops.analysis import board_analysis
+
+        sown = board_analysis(states.stones, states.size, states.ko,
+                              states.to_move)["score_ownership"]
+        board_score = sown.flatten(1).sum(-1).to(torch.float32)
+        return board_score - self.komi_with_penalty(states)
+
+    def ownership(self, states: GoState) -> torch.Tensor:
+        """[B, n, n] int64 Tromp-Taylor area ownership (+1 black)."""
+        return B.area_ownership(states.stones, states.size)
+
+    def penalty_offset_to_area(self, states: GoState) -> torch.Tensor:
+        """[B] float32 komi adjustment that keeps the score when a game
+        switches to area scoring; zero for area-rule games."""
+        territory_pen = (
+            states.played_stones[:, 0] - states.played_stones[:, 1]
+        ).to(torch.float32)
+        area_pen = states.handicap.to(torch.float32)
+        return torch.where(states.rule == AREA_RULE, 0.0, territory_pen - area_pen)
 
     def komi_penalty(self, states: GoState) -> torch.Tensor:
         """Territory rule adds (black played - white played); area rule

@@ -13,6 +13,10 @@ step+analysis kernel already produced it, else from one ``board_analysis``
 kernel launch (its plain twin for CPU tensors). The ladder planes come from
 the root (``ctx["ladders"]``) or, with ``ladder_mode="full"``, from the
 ladder kernels on every evaluated position.
+
+``make_dummy_eval_fn`` is the weightless evaluator (random legal priors,
+even value) that the GTP engine runs without a net, alone or under
+``mcts/rollout.py``'s rollout ownership.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ SUPPRESS_PASS_FACTOR = 0.1667
 
 
 def suppress_pass(priors, legal, size):
-    """Zero the pass prior while too many legal board moves remain, then
-    renormalize."""
+    """Zero the pass prior while more than (1 - SUPPRESS_PASS_FACTOR) *
+    size^2 legal board moves remain, then renormalize."""
     n_legal = legal[:, :-1].sum(-1).to(torch.float32)
     thresh = (1.0 - SUPPRESS_PASS_FACTOR) * (size * size).to(torch.float32)
     keep_pass = ~(n_legal > thresh)
@@ -120,6 +124,53 @@ def make_eval_fn(
             draw=wdl[:, 1],
             black_score=torch.where(is_black, stm_score, -stm_score),
             black_ownership=ownership * torch.where(is_black, 1.0, -1.0)[:, None],
+        )
+
+    return eval_fn
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """32-bit integer finalizer (xor-shift-multiply) on int64 tensors holding
+    values < 2**32; every product stays below 2**59."""
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def hash_uniform(words, num: int):
+    """[B, num] float32 in [0, 1), a deterministic function of the [B, 2]
+    hash words (values < 2**32) and the column index."""
+    col = torch.arange(num, device=words.device, dtype=torch.int64)
+    x = _mix32(words[:, :1] ^ ((col * 0x9E3779B9) & _M32))
+    x = _mix32(x ^ words[:, 1:2])
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def make_dummy_eval_fn(env: GoEnv):
+    """Random-output evaluator for weightless runs: priors 0.5 + noise on
+    the legal actions, normalized (pass kept); value 0.5, no draw, score
+    and ownership 0. The noise is a deterministic function of the position
+    hash, so a search stays reproducible; the JAX package draws it from
+    threefry keyed by the hash, the port from an integer hash of the hash
+    words and the action (the two give different numbers)."""
+
+    def eval_fn(states: GoState, ctx=None) -> NetEvals:
+        b = states.stones.shape[0]
+        dev = states.stones.device
+        legal = env.legal_action_mask(states)
+        noise = hash_uniform(states.hash, env.num_actions)
+        priors = torch.where(legal, 0.5 + noise, 0.0)
+        priors = priors / priors.sum(-1, keepdim=True).clamp(min=1e-9)
+        zeros = torch.zeros((b,), device=dev)
+        return NetEvals(
+            priors=priors,
+            black_wl=torch.full((b,), 0.5, device=dev),
+            draw=zeros,
+            black_score=zeros,
+            black_ownership=torch.zeros((b, env.n * env.n), device=dev),
         )
 
     return eval_fn

@@ -1,7 +1,7 @@
 """Board step + analysis kernels (CUDA, csrc/analysis.cu) and their plain
 PyTorch twins.
 
-Three entry points, each a hand-written CUDA kernel for sm_90a:
+Four entry points, each a hand-written CUDA kernel for sm_90a:
 
 - ``step_and_analyze`` replaces the Pallas ``_step_analysis_kernel``
   (sayuri_tpu/ops/analysis.py, entry ``step_and_analyze_tpu``): play the
@@ -14,14 +14,19 @@ Three entry points, each a hand-written CUDA kernel for sm_90a:
   ``ladder_prep_tpu``): the per-cell maps the ladder front end
   (game/ladder.py) extracts its candidate chains from. It runs once per
   ladder-plane batch.
+- ``step_and_legal`` replaces the Pallas ``_step_legal_kernel`` (entry
+  ``step_and_legal_tpu``): play the move, hash the child, and only the
+  child's legality. It is the raw env-stepping path
+  (``GoEnv.step_batch_light``: the env-steps bench).
 
 The analysis outputs are: legality, per-stone chain liberties capped at 5,
 Tromp-Taylor reach ownership, the safe (pass-alive / pass-dead) area of
 both colours and the score-area ownership.
 
 A wrapper given CPU tensors computes the plain twin (built from
-game/board.py and game/analysis.py); given CUDA tensors it launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per entry point.
+game/board.py and game/analysis.py, with the plain fixpoints, so a twin on
+CUDA tensors launches no kernel); given CUDA tensors it launches the kernel
+or raises. ``LAUNCHES`` counts kernel launches per entry point.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ _NUM_LIBS = 5  # liberty counts are capped here (planes need 1..4 exactly)
 MAX_N = 19     # one CUDA thread per cell, 384 threads at most
 
 # kernel launches per entry point (CUDA tensors only; the twins never count)
-LAUNCHES = {"step_and_analyze": 0, "board_analysis": 0, "ladder_prep": 0}
+LAUNCHES = {"step_and_analyze": 0, "board_analysis": 0, "ladder_prep": 0,
+            "step_and_legal": 0}
 
 
 def reset_launch_counts():
@@ -61,14 +67,32 @@ def board_analysis_plain(stones, size, ko, to_move):
     libs = torch.zeros(stones.shape, dtype=torch.int64, device=stones.device)
     for c in (C_BLACK, C_WHITE):
         m = (stones == c) & mask
-        libs = libs + B.chain_liberty_map(m, B.chain_labels(m), empty)
+        libs = libs + B.chain_liberty_map(m, B.chain_labels_plain(m), empty)
     safe, sown = GA.safe_and_ownership(stones, size)
     return {
-        "legal": B.legal_moves(stones, size, to_move, ko),
+        "legal": B.legal_moves(stones, size, to_move, ko, plain=True),
         "libs": libs.clamp(max=_NUM_LIBS).to(torch.int32),
-        "ownership": B.area_ownership(stones, size).to(torch.int32),
+        "ownership": B.area_ownership(stones, size, plain=True).to(torch.int32),
         "safe": safe,
         "score_ownership": sown.to(torch.int32),
+    }
+
+
+def _step_plain(stones, size, to_move, action):
+    """The play-and-hash half of both step kernels: play `action` (>= n*n
+    is a pass) -> dict(new_stones [B, n, n] int8, n_captured [B] int32,
+    new_ko [B] int32, new_hash [B, 2] int64)."""
+    nn = stones.shape[-1] ** 2
+    is_pass = action >= nn
+    stones_p, n_cap, ko_p = B.play_move(
+        stones, size, to_move, action.clamp(max=nn - 1), plain=True
+    )
+    new_stones = torch.where(is_pass[:, None, None], stones, stones_p)
+    return {
+        "new_stones": new_stones,
+        "n_captured": torch.where(is_pass, 0, n_cap).to(torch.int32),
+        "new_ko": torch.where(is_pass, NO_VERTEX, ko_p).to(torch.int32),
+        "new_hash": B.position_hash(new_stones),
     }
 
 
@@ -77,20 +101,20 @@ def step_and_analyze_plain(stones, size, ko, to_move, action):
     (>= n*n is a pass), hash the child, analyse it with the side to move
     flipped. Returns the analysis dict plus new_stones [B, n, n] int8,
     n_captured [B] int32, new_ko [B] int32, new_hash [B, 2] int64."""
-    nn = stones.shape[-1] ** 2
-    is_pass = action >= nn
-    stones_p, n_cap, ko_p = B.play_move(
-        stones, size, to_move, action.clamp(max=nn - 1)
-    )
-    new_stones = torch.where(is_pass[:, None, None], stones, stones_p)
-    new_ko = torch.where(is_pass, NO_VERTEX, ko_p).to(torch.int32)
-    out = board_analysis_plain(new_stones, size, new_ko, 1 - to_move)
-    out.update(
-        new_stones=new_stones,
-        n_captured=torch.where(is_pass, 0, n_cap).to(torch.int32),
-        new_ko=new_ko,
-        new_hash=B.position_hash(new_stones),
-    )
+    out = _step_plain(stones, size, to_move, action)
+    out.update(board_analysis_plain(out["new_stones"], size, out["new_ko"],
+                                    1 - to_move))
+    return out
+
+
+def step_and_legal_plain(stones, size, ko, to_move, action):
+    """Plain PyTorch version of the light step kernel: play `action` (>=
+    n*n is a pass), hash the child, and the child's legality for the side
+    to move after it. Returns new_stones [B, n, n] int8, n_captured [B]
+    int32, new_ko [B] int32, new_hash [B, 2] int64, legal [B, n*n] bool."""
+    out = _step_plain(stones, size, to_move, action)
+    out["legal"] = B.legal_moves(out["new_stones"], size, 1 - to_move,
+                                 out["new_ko"], plain=True)
     return out
 
 
@@ -127,7 +151,7 @@ def ladder_prep_plain(stones, size, ko):
     empty = (stones == 0) & mask
     black = (stones == C_BLACK) & mask
     white = (stones == C_WHITE) & mask
-    lbl_b, lbl_w = B.chain_labels(black), B.chain_labels(white)
+    lbl_b, lbl_w = B.chain_labels_plain(black), B.chain_labels_plain(white)
     labels = torch.where(lbl_b >= 0, lbl_b, lbl_w)
     libs = (B.chain_liberty_map(black, lbl_b, empty)
             + B.chain_liberty_map(white, lbl_w, empty))
@@ -170,6 +194,8 @@ def _lib():
     lib.launch_step_analysis.restype = i
     lib.launch_ladder_prep.argtypes = [vp] * 3 + [vp] * 6 + [i, i, vp]
     lib.launch_ladder_prep.restype = i
+    lib.launch_step_legal.argtypes = [vp] * 6 + [vp] * 5 + [i, i, vp]
+    lib.launch_step_legal.restype = i
     return lib
 
 
@@ -290,6 +316,43 @@ def step_and_analyze(stones, size, ko, to_move, action):
         "ownership": own,
         "safe": safe,
         "score_ownership": sown,
+    }
+
+
+def step_and_legal(stones, size, ko, to_move, action):
+    """Batched light env step: [B, n, n] int8 stones, [B] int32
+    size/ko/to_move/action (>= n*n is a pass). Returns new_stones [B, n, n]
+    int8, n_captured [B] int32, new_ko [B] int32, new_hash [B, 2] int64 (two
+    32-bit words) and legal [B, n*n] bool, the child's legality for the
+    side to move after the move."""
+    if stones.device.type == "cpu":
+        return step_and_legal_plain(stones, size, ko, to_move, action)
+    if stones.device.type != "cuda":
+        raise ValueError(f"step_and_legal: unsupported device {stones.device}")
+    b, n = _check_inputs(stones, {"size": size, "ko": ko, "to_move": to_move,
+                                  "action": action})
+    dev = stones.device
+    zob = _zobrist_rows(n, str(dev))
+    new_stones = torch.empty((b, n, n), dtype=torch.int8, device=dev)
+    ncap = torch.empty((b,), dtype=torch.int32, device=dev)
+    ko2 = torch.empty((b,), dtype=torch.int32, device=dev)
+    h = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    legal = torch.empty((b, n * n), dtype=torch.bool, device=dev)
+    if b:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().launch_step_legal(
+            _ptr(stones), _ptr(size), _ptr(ko), _ptr(to_move), _ptr(action),
+            _ptr(zob), _ptr(new_stones), _ptr(ncap), _ptr(ko2), _ptr(h),
+            _ptr(legal), b, n, ctypes.c_void_p(stream),
+        )
+        _raise_if(rc, "step_and_legal")
+        LAUNCHES["step_and_legal"] += 1
+    return {
+        "new_stones": new_stones,
+        "n_captured": ncap,
+        "new_ko": ko2,
+        "new_hash": h.to(torch.int64) & 0xFFFFFFFF,
+        "legal": legal,
     }
 
 

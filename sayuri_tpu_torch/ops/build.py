@@ -4,7 +4,8 @@ with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface (pointers and the stream
 as ``void*``), so it compiles in seconds without PyTorch's headers. The
 shared library goes to ``sayuri_tpu_torch/_build/`` (git-ignored) and is
-rebuilt when the source is newer than it.
+rebuilt when the source or any shared header ``csrc/*.cuh`` is newer than
+it.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def load(name: str) -> ctypes.CDLL:
     out = BUILD_DIR / f"lib{name}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in (src, *CSRC_DIR.glob("*.cuh")))
+    if not out.exists() or out.stat().st_mtime < newest:
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]

@@ -68,7 +68,7 @@ def _golden_boards():
     env = GoEnv(n=n)
     out = []
     for rec in data["records"]:
-        s = env.new_batch(1, komi=data["komi"])
+        s = env.new_batch(1, komi=data["komi"], device="cpu")
         for _, v in rec["moves"]:
             s = env.step(s, torch.tensor([n * n if v < 0 else v], dtype=torch.int32))
         if rec["stones"] is not None:
@@ -119,13 +119,16 @@ def test_inner_slots_match_jax():
 def test_cpu_wrappers_use_twins_and_count_nothing():
     TA.reset_launch_counts()
     env = GoEnv(n=5)
-    s = env.new_batch(2)
+    s = env.new_batch(2, device="cpu")
     out = TA.step_and_analyze(s.stones, s.size, s.ko, s.to_move,
                               torch.tensor([12, 25], dtype=torch.int32))
     assert out["new_stones"][0, 2, 2] == 1 and out["new_stones"][1].sum() == 0
     TA.board_analysis(s.stones, s.size, s.ko, s.to_move)
+    light = TA.step_and_legal(s.stones, s.size, s.ko, s.to_move,
+                              torch.tensor([12, 25], dtype=torch.int32))
+    assert torch.equal(light["new_stones"], out["new_stones"])
     assert TA.LAUNCHES == {"step_and_analyze": 0, "board_analysis": 0,
-                           "ladder_prep": 0}
+                           "ladder_prep": 0, "step_and_legal": 0}
 
 
 def test_wrappers_reject_unsupported_device():

@@ -60,7 +60,7 @@ class TestEnvAgainstJax:
     def test_new_batch_matches(self):
         for n in (5, 9, 19):
             ref = JEnv(n=n).new_batch(3, komi=6.5)
-            assert_states_equal(ref, GoEnv(n=n).new_batch(3, komi=6.5), n)
+            assert_states_equal(ref, GoEnv(n=n).new_batch(3, komi=6.5, device="cpu"), n)
 
     def test_random_games_step_legal_hash(self):
         """vmap(env.step) and legal_action_mask over random 9x9 games with
@@ -70,7 +70,7 @@ class TestEnvAgainstJax:
         tenv = GoEnv(n=n)
         rng = np.random.RandomState(1)
         js = jenv.new_batch(b, komi=7.5)
-        ts = tenv.new_batch(b, komi=7.5)
+        ts = tenv.new_batch(b, komi=7.5, device="cpu")
         step = jax.jit(jax.vmap(jenv.step))
         legal_fn = jax.jit(jax.vmap(jenv.legal_action_mask))
         for m in range(70):
@@ -96,7 +96,7 @@ class TestEnvAgainstJax:
         jenv, tenv = JEnv(n=n), GoEnv(n=n)
         rng = np.random.RandomState(9)
         js = jenv.new_batch(b, komi=7.5)
-        ts = tenv.new_batch(b, komi=7.5)
+        ts = tenv.new_batch(b, komi=7.5, device="cpu")
         step = jax.jit(jax.vmap(jenv.step))
         legal_fn = jax.jit(jax.vmap(jenv.legal_action_mask))
         for m in range(40):

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.game import ladder as TL
 from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.ops import analysis as TA
+from sayuri_tpu_torch.ops import flood as FK
 from sayuri_tpu_torch.ops import ladder_kernel as LK
 
 pytestmark = pytest.mark.gpu
@@ -27,7 +29,7 @@ def cuda():
 def _positions(n, b, moves, seed):
     env = GoEnv(n=n)
     rng = np.random.RandomState(seed)
-    s = env.new_batch(b)
+    s = env.new_batch(b, device="cpu")
     for _ in range(moves):
         legal = env.legal_action_mask(s).numpy()
         acts = np.array([rng.choice(np.nonzero(l)[0]) for l in legal], np.int32)
@@ -53,7 +55,7 @@ def test_kernels_equal_twins(cuda, n):
         for k, v in want.items():
             assert torch.equal(got[k].cpu(), v.to(got[k].dtype)), k
     assert TA.LAUNCHES == {"step_and_analyze": 1, "board_analysis": 1,
-                           "ladder_prep": 0}
+                           "ladder_prep": 0, "step_and_legal": 0}
 
 
 def test_wrapper_rejects_wrong_dtype(cuda):
@@ -123,3 +125,56 @@ def test_ladder_wrappers_reject_wrong_dtype(cuda):
     stones = torch.zeros((2, 9, 9), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="stones"):
         TA.ladder_prep(stones, s32, s32)
+
+
+@pytest.mark.parametrize("n", [9, 19])
+def test_env_kernels_equal_plain(cuda, n):
+    """step_and_legal, chain_labels and flood against their plain versions
+    (colour masks of random positions as [3, B, n, n] nested boards); one
+    launch per wrapper call."""
+    s, acts = _positions(n, 32, 3 * n, seed=200 + n)
+    acts[0] = n * n
+    TA.reset_launch_counts()
+    FK.reset_launch_counts()
+    args = (s.stones, s.size, s.ko, s.to_move, acts)
+    want = TA.step_and_legal_plain(*args)
+    got = TA.step_and_legal(*(x.to(cuda) for x in args))
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v.to(got[k].dtype)), k
+    mask = TB.board_mask(s.size, n)
+    masks = torch.stack([(s.stones == c) & mask for c in (0, 1, 2)])
+    seeds = torch.from_numpy(np.random.RandomState(n).rand(*masks.shape) < 0.05)
+    assert torch.equal(FK.chain_labels(masks.to(cuda)).cpu(), TB.chain_labels_plain(masks))
+    assert torch.equal(FK.flood(seeds.to(cuda), masks.to(cuda)).cpu(),
+                       TB.flood_plain(seeds, masks))
+    assert TA.LAUNCHES["step_and_legal"] == 1
+    assert FK.LAUNCHES == {"flood": 1, "chain_labels": 1}
+
+
+def test_env_queries_on_card_equal_cpu(cuda):
+    """GoEnv's step, legality, superko, score and ownership on CUDA states
+    (kernels) equal the CPU run (plain versions)."""
+    env = GoEnv(n=19)
+    s, acts = _positions(19, 16, 80, seed=7)
+    d, dacts = s.to(cuda), acts.to(cuda)
+    for name, fn in (("legal", env.legal_action_mask), ("score", env.final_score),
+                     ("ownership", env.ownership)):
+        assert torch.equal(fn(d).cpu(), fn(s)), name
+    sub = s.map(lambda x: x[:4])
+    assert torch.equal(env.superko_action_mask(sub.to(cuda)).cpu(),
+                       env.superko_action_mask(sub))
+    for k, v in env.step(s, acts).fields().items():
+        assert torch.equal(getattr(env.step(d, dacts), k).cpu(), v), k
+    light, legal = env.step_batch_light(d, dacts)
+    want, want_legal = env.step_batch_light(s, acts)
+    assert torch.equal(legal.cpu(), want_legal)
+    assert torch.equal(light.stones.cpu(), want.stones)
+
+
+def test_fixpoint_wrappers_reject_wrong_input(cuda):
+    ints = torch.zeros((2, 9, 9), dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError, match="stone_mask"):
+        FK.chain_labels(ints)
+    masks = torch.zeros((2, 9, 9), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="seed"):
+        FK.flood(masks[:1], masks)

@@ -23,7 +23,7 @@ def replay(env, records, komi):
     """All records' moves ("pass" or a flat vertex) in one batch; a lane
     stops moving after its last move."""
     b, n = len(records), env.n
-    s = env.new_batch(b, komi=komi)
+    s = env.new_batch(b, komi=komi, device="cpu")
     moves = [r["moves"] for r in records]
     for t in range(max(len(m) for m in moves)):
         active = torch.tensor([t < len(m) for m in moves])

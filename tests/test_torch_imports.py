@@ -21,12 +21,16 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.ops.analysis",
     "sayuri_tpu_torch.ops.ladder_kernel",
     "sayuri_tpu_torch.ops.build",
+    "sayuri_tpu_torch.ops.flood",
     "sayuri_tpu_torch.models.symmetry",
     "sayuri_tpu_torch.models.encoder",
     "sayuri_tpu_torch.models.network",
     "sayuri_tpu_torch.models.weights_io",
     "sayuri_tpu_torch.models.evaluator",
     "sayuri_tpu_torch.mcts.core",
+    "sayuri_tpu_torch.mcts.rollout",
+    "sayuri_tpu_torch.selfplay",
+    "sayuri_tpu_torch.selfplay.randomize",
     "sayuri_tpu_torch.bench",
 ]
 

@@ -53,7 +53,7 @@ def test_terminal_root_and_pass_bookkeeping():
     """Two passes end the game inside the tree: terminal leaves are valued
     by the score-area pass and a terminated root only re-visits itself."""
     env = GoEnv(n=5)
-    states = env.new_batch(2, komi=0.5)
+    states = env.new_batch(2, komi=0.5, device="cpu")
     states = env.step(states, torch.tensor([25, 12], dtype=torch.int32))
     states = env.step(states, torch.tensor([25, 25], dtype=torch.int32))
     assert states.terminated.tolist() == [True, False]
