@@ -10,10 +10,13 @@ no result line):
 2. build: compile csrc/analysis.cu, csrc/ladder.cu and csrc/flood.cu with
    nvcc for sm_90a (first use, the three nvcc processes at once); ptxas
    resources printed.
-3. kernel parity: random legal 19x19 positions (B=256, numpy seed) plus
-   the pass-dead golden boards, through both analysis kernels and their
-   plain twins on the CPU: every output equal cell for cell; kernel and
-   plain version timed on the card at B=256.
+3. kernel parity: random legal 19x19 positions (B=256, numpy seed), the
+   pass-dead golden boards and the stress boards of game/positions.py
+   (one-colour spiral, checkerboard, full and empty boards, the capture of
+   a whole spiral, smaller games in the buffer; 19x19 and 9x9 buffers),
+   through both analysis kernels and their plain twins on the CPU: every
+   output equal cell for cell; kernel and plain version timed on the card
+   at B=256.
 4. ladder kernel parity: the same 256 positions plus the 54 records of
    tests/goldens/go_goldens_19.json. ladder_prep, run_greedy and run_chases
    equal their plain twins cell for cell and lane for lane (the lanes that
@@ -33,9 +36,10 @@ no result line):
    root NetEvals within 1e-4, share of lanes with identical root visit
    vectors reported.
 8. step-legal parity: step_and_legal against its plain version on the
-   CPU over the positions and actions of phase 3 and the pass-dead
-   goldens, every output equal; at B=4096 (the positions tiled 16 times)
-   equal to the tiled plain output; kernel timed at B=256 and B=4096; then
+   CPU over the positions and actions of phase 3, the pass-dead goldens
+   and the stress boards, every output equal; at B=4096 (the positions
+   tiled 16 times) equal to the tiled plain output; kernel timed at B=256
+   and B=4096; then
    the env-steps bench (bench_env_steps: B=4096 19x19, 64 light steps a
    run, one warm-up and three timed runs), one launch a step plus the pass
    pre-step, every lane's move count advanced, and the last run's final
@@ -57,7 +61,8 @@ no result line):
 12. fixpoint shapes: flood and chain_labels at every board count their
     wrappers were given in phases 9-11 (a spy on ops/flood.py keeps the
     first inputs of each), equal to their plain versions and timed there;
-    the launches of each shape give its share of the kernel's time.
+    the launches of each shape give its share of the kernel's time; then
+    both on the stress boards' colour masks at 512 boards.
 
 Launch counters are set to 0 right before each main path (phases 5, 8-11)
 and read right after it. The second-to-last line is the kernels JSON (all
@@ -81,6 +86,7 @@ EVAL_ATOL = 1e-4  # f32 card vs CPU: conv/matmul sums in another order
 ENV_BATCH, ENV_STEPS, ENV_RUNS = 4096, 64, 3
 ROLLOUT_REPLAY_LANES = 64
 WRAPPED_PLAYOUTS, WRAPPED_MAX_MOVES = 8, 64
+SPIN_CYCLES = 50_000_000   # time_card's head start, about 25 ms at 1980 MHz
 # the bound: H100 SXM data sheet rates (HBM bytes/s; float32 outside the
 # tensor cores, taken as the rate of the scalar integer work these kernels
 # do). Operations counted: OPS_PER_CELL a board cell (or lane row), the
@@ -112,32 +118,6 @@ def bound(nbytes, ops):
     operations."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def random_positions(torch, np, n, b, seed, max_moves):
-    """Legal random games with the port's plain env on the CPU; each lane
-    stops after its own number of moves. Returns (states, actions) with
-    one legal next action per lane (some passes)."""
-    from sayuri_tpu_torch.game.state import GoEnv
-
-    env = GoEnv(n=n)
-    rng = np.random.RandomState(seed)
-    s = env.new_batch(b, device="cpu")
-    stop = rng.randint(0, max_moves, size=b)
-    for m in range(max_moves):
-        legal = env.legal_action_mask(s).numpy()
-        acts = np.array([
-            rng.choice(np.nonzero(l[:-1])[0])
-            if l[:-1].any() and m < stop[i] else n * n
-            for i, l in enumerate(legal)
-        ], np.int32)
-        s = env.step(s, torch.from_numpy(acts))
-        # keep lanes alive: passes here only mark a lane as finished
-        s = s.replace(terminated=torch.zeros_like(s.terminated),
-                      pass_count=torch.zeros_like(s.pass_count))
-    legal = env.legal_action_mask(s).numpy()
-    acts = np.array([rng.choice(np.nonzero(l)[0]) for l in legal], np.int32)
-    return s, torch.from_numpy(acts)
 
 
 def golden_positions(torch, np):
@@ -182,12 +162,17 @@ def compare(torch, kernel_out, plain_out, tag):
 
 
 def time_card(torch, fn, args, iters=20, warmup=2):
-    """ms per call on the card: CUDA events around `iters` calls."""
+    """ms per call on the card: CUDA events around `iters` calls. A spin
+    kernel queued first (about 25 ms) keeps the card busy while the host
+    queues the calls, so that a kernel shorter than its wrapper's host time
+    is timed back to back and not at the host's pace; a call that waits on
+    the card is still timed at the host's pace."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     e0.record()
     for _ in range(iters):
         fn(*args)
@@ -303,6 +288,7 @@ def main():
 
     from sayuri_tpu_torch import bench
     from sayuri_tpu_torch.game import ladder as TL
+    from sayuri_tpu_torch.game.positions import random_positions, stress_positions
     from sayuri_tpu_torch.ops import analysis as TA
     from sayuri_tpu_torch.ops import build
     from sayuri_tpu_torch.ops import flood as FK
@@ -354,9 +340,12 @@ def main():
     # ---- 3. kernel parity ----
     phase("kernel parity")
     t0 = time.monotonic()
-    s19, a19 = random_positions(torch, np, 19, PARITY_B, seed=0, max_moves=260)
+    s19, a19 = random_positions(19, PARITY_B, seed=0, max_moves=260)
     print(f"{PARITY_B} random 19x19 positions in {time.monotonic() - t0:.1f} s")
     gold = golden_positions(torch, np)
+    stress = {n: stress_positions(n) for n in (19, 9)}
+    print(f"stress boards ({len(stress[19][5])} a buffer size): "
+          f"{'; '.join(sorted(set(stress[19][5])))}")
     rec = {}
     total_cells = 0
     for tag, args_cpu, fn, plain in (
@@ -368,6 +357,13 @@ def main():
          TA.step_and_analyze, TA.step_and_analyze_plain),
         ("board_analysis goldens 9x9", gold,
          TA.board_analysis, TA.board_analysis_plain),
+        *((f"{name} stress boards {n}x{n} buffer", args, fn, plain)
+          for n in (19, 9)
+          for name, args, fn, plain in (
+              ("board_analysis", stress[n][:4], TA.board_analysis,
+               TA.board_analysis_plain),
+              ("step_and_analyze", stress[n][:5], TA.step_and_analyze,
+               TA.step_and_analyze_plain))),
     ):
         args = tuple(x.to(dev).contiguous() for x in args_cpu)
         want = plain(*args_cpu)
@@ -379,7 +375,7 @@ def main():
         r = rec.setdefault(name, {"cells": 0, "max_abs_err": 0})
         r["cells"] += cells
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if "19x19" in tag:
+        if tag.endswith(" 19x19"):
             t_cpu = time.monotonic()
             plain(*args_cpu)
             r["cpu_plain_ms"] = (time.monotonic() - t_cpu) * 1e3
@@ -537,7 +533,7 @@ def main():
     from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
 
     env9 = GoEnv(n=9)
-    roots, _ = random_positions(torch, np, 9, 8, seed=3, max_moves=50)
+    roots, _ = random_positions(9, 8, seed=3, max_moves=50)
     net_cpu = SayuriNet(NetConfig(boardsize=9)).init_random(7).eval()
     net_gpu = SayuriNet(NetConfig(boardsize=9)).init_random(7).to(dev).eval()
     outs = {}
@@ -591,6 +587,8 @@ def main():
     for tag, args_cpu in (
         ("random 19x19", (s19.stones, s19.size, s19.ko, s19.to_move, a19)),
         ("pass-dead goldens 9x9", (*gold, legal_actions(torch, np, gold, seed=5))),
+        ("stress boards 19x19 buffer", stress[19][:5]),
+        ("stress boards 9x9 buffer", stress[9][:5]),
     ):
         args = tuple(x.to(dev).contiguous() for x in args_cpu)
         want = TA.step_and_legal_plain(*args_cpu)
@@ -890,6 +888,25 @@ def main():
               f"the main paths, kernel {ms:.4f} ms, bound {b_ms:.6f} ms, {cells} cells "
               f"equal the plain version; (kernel - bound) x launches "
               f"{(ms - b_ms) * n_launch:.3f} ms  [{card}]")
+    # the stress boards' colour masks, tiled to the labels' main shape (512
+    # boards); the flood seeded at the mask's cells next to another cell
+    for n in (19, 9):
+        st, sz = stress[n][:2]
+        masks = torch.stack([(st == c) & TB.board_mask(sz, n) for c in (0, 1, 2)])
+        masks = masks.reshape(-1, n, n).repeat(-(-512 // (3 * st.shape[0])), 1, 1)[:512]
+        seeds = masks & TB.nbr_or(~masks)
+        d_masks, d_seeds = masks.to(dev), seeds.to(dev)
+        for name, a, a_cpu in (("chain_labels", (d_masks,), (masks,)),
+                               ("flood", (d_seeds, d_masks), (seeds, masks))):
+            cells, err = compare(torch, {name: getattr(FK, name)(*a)},
+                                 {name: plains[name](*a_cpu)},
+                                 f"{name} stress boards {n}x{n}")
+            rec[name]["cells"] += cells
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+            ms = time_card(torch, getattr(FK, name), a, iters=10)
+            print(f"{name} on the stress boards' colour masks, {n}x{n} buffer, 512 "
+                  f"boards: {cells} cells equal the plain version, kernel {ms:.4f} ms "
+                  f"[{card}]")
     phase_done("fixpoint shapes")
 
     # ---- result ----

@@ -21,11 +21,20 @@ times the raw env: `batch` 19x19 games (default 4096) stepped `steps`
 times (default 64) through ``GoEnv.step_batch_light`` (one light step
 kernel launch a step), each move the legal cell of highest integer hash,
 chained on the card; prints ONE JSON line, ``env_steps_per_s_19x19``.
+
+    python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
+
+times the board kernels built from another csrc/ tree (an earlier
+commit's, unpacked with ``git archive``) against the package's,
+alternately in one process (see ``ab_kernels``); prints a line a case and
+one JSON line.
+
 A run without a CUDA device fails; it never falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -247,10 +256,128 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     }
 
 
+AB_ROUNDS, AB_INNER = 25, 10
+
+
+def ab_kernels(old_csrc, device="cuda"):
+    """Times the board kernels built from another source tree (`old_csrc`:
+    its analysis.cu, flood.cu and headers, e.g. an earlier commit's csrc/)
+    against the package's, in one process on one card. The old libraries
+    are built into a temporary directory. Both sides run through the
+    package's own wrappers, their library (``_lib`` of ops/analysis.py and
+    ops/flood.py) pointed at that side's build. Inputs: the 256 random
+    19x19 positions of chip_smoke.py phase 3 and the stress boards of
+    game/positions.py, at the main paths' board counts (the flood kernel,
+    unchanged since it was ported, reads the spread of two equal builds).
+    AB_INNER calls of a case are captured in one CUDA graph a side; each of
+    AB_ROUNDS rounds replays both graphs in alternating order, with CUDA
+    events around each replay. Returns per case the median ms a call of
+    each side, every round's reading, and whether the two sides' outputs
+    are equal."""
+    import contextlib
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    from sayuri_tpu_torch.game import board as TB
+    from sayuri_tpu_torch.game.positions import random_positions, stress_positions
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import build
+    from sayuri_tpu_torch.ops import flood as FK
+
+    dev = torch.device(device)
+    tmp = Path(tempfile.mkdtemp(prefix="sayuri_ab_"))
+    libs = {"new": (TA._lib(), FK._lib())}
+    old = []
+    for name, bind in (("analysis", TA.bind), ("flood", FK.bind)):
+        build.compile_library(Path(old_csrc) / f"{name}.cu", tmp / f"lib{name}.so")
+        old.append(bind(ctypes.CDLL(str(tmp / f"lib{name}.so"))))
+    libs["old"] = tuple(old)
+
+    @contextlib.contextmanager
+    def side(k):
+        saved = TA._lib, FK._lib
+        TA._lib, FK._lib = (lambda: libs[k][0]), (lambda: libs[k][1])
+        try:
+            yield
+        finally:
+            TA._lib, FK._lib = saved
+
+    def tiled(ts, boards):
+        return tuple(t.repeat((-(-boards // t.shape[0]),) + (1,) * (t.ndim - 1))
+                     [:boards].to(dev).contiguous() for t in ts)
+
+    def flat(out):
+        return list(out.values()) if isinstance(out, dict) else [out]
+
+    s, a = random_positions(19, 256, seed=0, max_moves=260)
+    rnd = (s.stones, s.size, s.ko, s.to_move, a)
+    stress = stress_positions(19)[:5]
+    black, white = s.stones == 1, s.stones == 2
+    colours = torch.cat([black, white])                      # both colours: 512
+    st_masks = torch.cat([stress[0] == c for c in (0, 1, 2)])
+
+    def flood_args(masks, boards):
+        (m,) = tiled((masks,), boards)
+        return m & TB.nbr_or(~m), m
+
+    cases = {
+        "step_and_analyze B=256": (TA.step_and_analyze, tiled(rnd, 256)),
+        "step_and_analyze B=256 stress": (TA.step_and_analyze, tiled(stress, 256)),
+        "board_analysis B=256": (TA.board_analysis, tiled(rnd[:4], 256)),
+        "step_and_legal B=256": (TA.step_and_legal, tiled(rnd, 256)),
+        "step_and_legal B=4096": (TA.step_and_legal, tiled(rnd, 4096)),
+        "chain_labels 256 boards": (FK.chain_labels, tiled((black,), 256)),
+        "chain_labels 512 boards": (FK.chain_labels, tiled((colours,), 512)),
+        "chain_labels 512 boards stress": (FK.chain_labels, tiled((st_masks,), 512)),
+        "chain_labels 92416 boards": (FK.chain_labels, tiled((colours,), 92416)),
+        "flood 256 boards": (FK.flood, flood_args(black, 256)),
+        "flood 512 boards": (FK.flood, flood_args(colours, 512)),
+        "flood 92416 boards": (FK.flood, flood_args(colours, 92416)),
+    }
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def replay(graph):
+        ev[0].record()
+        graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        return ev[0].elapsed_time(ev[1]) / AB_INNER
+
+    report = {}
+    for name, (fn, args) in cases.items():
+        outs, graphs = {}, {}
+        for k in libs:
+            with side(k):
+                for _ in range(2):
+                    outs[k] = flat(fn(*args))
+                torch.cuda.synchronize(dev)
+                graphs[k] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[k]):
+                    for _ in range(AB_INNER):
+                        fn(*args)
+        torch.cuda.synchronize(dev)
+        equal = all(torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
+        ms = {k: [] for k in libs}
+        for r in range(AB_ROUNDS):
+            for k in (("old", "new") if r % 2 == 0 else ("new", "old")):
+                ms[k].append(replay(graphs[k]))
+        report[name] = {**{f"{k}_ms": statistics.median(v) for k, v in ms.items()},
+                        "outputs_equal": equal, "rounds_ms": ms}
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("bench: no CUDA device; this benchmark runs on the card only")
     args = sys.argv[1:]
+    if args and args[0] == "kernels-ab":
+        res = ab_kernels(args[1])
+        for name, r in res.items():
+            print(f"{name}: old {r['old_ms']:.4f} ms, new {r['new_ms']:.4f} ms "
+                  f"(medians of {AB_ROUNDS}); outputs equal {r['outputs_equal']}")
+        print(json.dumps({"kernels_ab": res, "device": device_info()}))
+        return
     if args and args[0] == "envsteps":
         batch = int(args[1]) if len(args) > 1 else 4096
         steps = int(args[2]) if len(args) > 2 else 64

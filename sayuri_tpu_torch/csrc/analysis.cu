@@ -7,24 +7,36 @@
 //   step_legal_kernel     <- _step_legal_kernel    (entry step_and_legal_tpu)
 // The first two share one __device__ routine, analyze_board(), as the
 // Pallas pair shares _analyze_board; the two step kernels share
-// play_and_hash(); all four share the labelling (board.cuh).
+// play_and_hash().
 //
-// What bounds it on this card: not bytes (a board is 361 bytes in and a few
-// KB out) but the latency of serial, data-dependent fixpoint sweeps: chain
-// and region labelling, floods and the Benson iteration, each a loop of
-// dependent shared-memory passes with a block-wide barrier per pass. The
-// design answers that with:
+// What bounds them on this card: not bytes (a board is 361 bytes in and a
+// few KB out) but the latency of one board's serial chain of phases. At the
+// search batch (B=256, about two blocks on each of the 132 SMs) the card
+// is half empty and a launch lasts about one board's chain. A phase costs
+// its barrier and its longest dependent chain of shared-memory steps, and
+// a step inside a loop whose trip count depends on the data costs several
+// times an unrolled one (PERF.md, section 6). The design:
 //   - one thread block per board and one thread per cell, the whole board
-//     and every scratch map in shared memory, so a sweep is one pass over
-//     shared memory plus one __syncthreads_or;
-//   - in-place (chaotic) relaxation with pointer jumping for labels, so a
-//     sweep propagates a label many cells at once and the loop ends after
-//     the first pass in which no thread changed anything;
-//   - integer labels (min flat index) and shared-memory atomics for all
-//     per-chain / per-region aggregates instead of the TPU kernel's float
-//     encodings and k-th-minimum propagations;
-//   - many boards in flight (B blocks, several resident per SM) to hide the
-//     barrier latency of each one.
+//     and every scratch map in shared memory;
+//   - every labelling of the step+analysis path is the union-find
+//     labelling of board.cuh: two barriers whatever the board, where the
+//     relaxation took one a pass and tens of passes on a long chain;
+//   - work that the TPU kernel does in separate passes shares phases:
+//     one labelling gives the chains of both colours and the empty regions
+//     (class = 1 + cell value), whose roots collect the liberty counts and
+//     the two reach flags, in place of two reach floods; the two colours'
+//     Benson regions, Benson iterations and pass-dead regions run in the
+//     same phases, each colour with its own arrays;
+//   - flags that a whole region raises at its root are plain byte stores
+//     (same-address atomics from a region would serialise); counts stay
+//     shared-memory atomics. Any empty cell of a region serves as its
+//     candidate source (the vital set does not depend on which), so no
+//     atomic minimum either;
+//   - integer labels (min flat index) instead of the TPU kernel's float
+//     encodings and k-th-minimum propagations.
+// The inner-region eye refinement stays per colour, and only runs when a
+// candidate eye needs it (a block-wide flag); its slots come from per-warp
+// ballots, not a serial scan of the board.
 //
 // Semantics follow sayuri_tpu/game/board.py and game/analysis.py cell for
 // cell, including liberty counts capped at 5 and the inner-region eye
@@ -38,67 +50,59 @@ namespace {
 constexpr int NUM_LIBS = 5;
 constexpr int INNER_SLOTS = 6;
 
-// Shared scratch for one board. All per-root arrays are indexed by the
-// root's flat cell index.
+// Shared scratch for one board (44,256 bytes). Residency is set by the 56
+// registers a thread, not by this struct: three blocks of 384 threads an
+// SM, 396 boards on the card, more than the search's B=256. Per-root
+// arrays are indexed by the root's flat cell index; [k] is the colour (0
+// black, 1 white) whose Benson / pass-dead analysis an array serves. Flags
+// that many cells raise at one root are plain byte stores, not atomics:
+// same-address atomics from a whole region serialise.
 struct Smem {
   int8_t st[MAXNN];          // stones 0/1/2
   uint8_t msk[MAXNN];        // on-board
-  uint8_t fa[MAXNN];         // flag maps (floods, masks)
-  uint8_t fb[MAXNN];
-  uint8_t fc[MAXNN];
-  uint8_t fd[MAXNN];
-  uint8_t pa[2][MAXNN];      // pass-alive area per colour
-  int lbl_s[MAXNN];          // stone chains (same colour), BIG off-chain
-  int lbl_r[MAXNN];          // Benson regions
-  int lbl_r2[MAXNN];         // pass-dead regions
-  int lbl_f[MAXNN];          // scratch labels (floods)
-  int libcnt[MAXNN];         // liberties per chain root
-  int nbrA[4][MAXNN];        // deduped own chains next to each empty cell
-  int cand[4][MAXNN];        // candidate vital chain per region root / slot
-  int ra[MAXNN];             // per-root scratch aggregates
-  int rb[MAXNN];
-  int rc[MAXNN];
-  int rd[MAXNN];
+  uint8_t cls[MAXNN];        // play: opponent stones; analysis: 1 + stone
+  uint8_t oth[2][MAXNN];     // not own: Benson regions
+  uint8_t o2[2][MAXNN];      // not a blocker: pass-dead regions
+  uint8_t blk[2][MAXNN];     // blockers (pass-alive chains, vital regions)
+  uint8_t eye[2][MAXNN];
+  uint8_t reach[2][MAXNN];   // empty-region root: next to a black / white stone
+  uint8_t bad[2][MAXNN];     // region root: an empty cell with no own neighbour
+  uint8_t nonvital[2][4][MAXNN];  // region root: slot d is not vital
+  uint8_t alive[2][MAXNN];   // chain root: still alive in the Benson loop
+  uint8_t unus[2][2][MAXNN]; // [parity][k] region root: not usable
+  uint8_t pot[2][MAXNN];     // region root: potentially vital
+  uint8_t eadj[2][MAXNN];    // pass-dead root: two of its eyes are adjacent
+  uint8_t fl[MAXNN];         // refinement: flood class
+  uint8_t fx[MAXNN];         // refinement: blocker maps for corner counts
+  int lbl_s[MAXNN];          // chains and empty regions; play: captures
+  int lbl_r[2][MAXNN];       // Benson regions
+  int lbl_r2[2][MAXNN];      // pass-dead regions
+  int lbl_f[MAXNN];          // refinement floods
+  int haslib[MAXNN];         // play: chain root has a liberty
+  int libcnt[MAXNN];         // chain root: liberties
+  int ecount[2][MAXNN];      // pass-dead root: eyes
+  int rb[2][MAXNN];          // region root: one of its empty cells; then
+                             // refinement scratch
+  int cnt[2][2][MAXNN];      // [parity][k] chain root: vital regions
+  int16_t cand[2][4][MAXNN]; // region root: candidate vital chain per slot
+  unsigned needw[MAXNN / 32];
   int slots[INNER_SLOTS];
-  int scal[4];
+  int capv, ncap, flags, nslots;
+  unsigned hw[2];
 };
 
-// The light step kernel's scratch: what play_and_hash() and one
-// liberty count per chain root need, 5.8 KB instead of Smem's 29 KB.
+// The light step kernel's scratch: what play_and_hash() and one liberty
+// count per chain root need, 5.8 KB.
 struct SmemStep {
   int8_t st[MAXNN];
   uint8_t msk[MAXNN];
-  uint8_t fa[MAXNN];         // class map (captures, then child chains)
+  uint8_t cls[MAXNN];        // captures, then child chains (stone colour)
   int lbl_s[MAXNN];          // chain labels
-  int ra[MAXNN];             // per-root: has a liberty, then liberty count
-  int rb[MAXNN];             // rb[0]: smallest captured cell
-  int scal[4];               // [1] new ko, [2..3] hash words
+  int haslib[MAXNN];
+  int libcnt[MAXNN];
+  int capv, ncap;
+  unsigned hw[2];
 };
-
-// ---------------------------------------------------------------------------
-// fixpoint primitives (every thread of the block must call them)
-// ---------------------------------------------------------------------------
-
-// out = cells of `allowed` connected within `allowed` to a cell of `seed`.
-// seed/allowed are read for this thread's cell; `out` must differ from the
-// arrays the caller passes for other purposes.
-__device__ void flood(const Geo& g, Smem& s, bool seed, bool allowed,
-                      volatile uint8_t* out) {
-  volatile int* lbl = s.lbl_f;
-  volatile int* hit = s.rd;
-  if (g.cell) {
-    out[g.t] = allowed;
-    hit[g.t] = 0;
-  }
-  __syncthreads();
-  label_by_class(g, out, lbl);
-  if (g.cell && seed && allowed) hit[lbl[g.t]] = 1;
-  __syncthreads();
-  bool r = g.cell && allowed && hit[lbl[g.t]];
-  __syncthreads();
-  if (g.cell) out[g.t] = r;
-  __syncthreads();
-}
 
 __device__ __forceinline__ int nbr_count(const Geo& g, const volatile uint8_t* m) {
   int c = 0;
@@ -114,344 +118,384 @@ __device__ __forceinline__ int diag_count(const Geo& g, const volatile uint8_t* 
   return c;
 }
 
-// ---------------------------------------------------------------------------
-// Benson pass-alive area of `color` (game/analysis.py pass_alive_area).
-// Needs s.st, s.msk and s.lbl_s (same-colour chain labels). Writes s.pa[color].
-// ---------------------------------------------------------------------------
-__device__ void pass_alive(const Geo& g, Smem& s, int color) {
-  const int t = g.t;
-  const int8_t own_c = (int8_t)(color + 1), opp_c = (int8_t)(2 - color);
-  const bool m = g.cell && s.msk[t];
-  const bool own = m && s.st[t] == own_c;
-  const bool other = m && !own;
-  const bool empty = m && s.st[t] == 0;
-  const bool opp = m && s.st[t] == opp_c;
-  volatile uint8_t* fa = s.fa;   // own cells
-  volatile uint8_t* fb = s.fb;   // other cells
-  volatile int* lbl_r = s.lbl_r;
-  volatile int* lbl_s = s.lbl_s;
-  volatile int* bad = s.ra;      // region: not potential
-  volatile int* rempty = s.rb;   // region: min empty cell
-  volatile int* nm = s.rc;       // region: bit k = slot k not vital
-
+// This thread's result of flooding `allowed` from `seed` (read for this
+// thread's cell) over 4-connected cells. Three barriers; the caller passes
+// a barrier before the next call (`hit` is read after the last one).
+__device__ bool flood(const Geo& g, Smem& s, bool seed, bool allowed,
+                      volatile int* hit) {
   if (g.cell) {
-    fa[t] = own;
-    fb[t] = other;
-    bad[t] = 0;
-    rempty[t] = BIG;
-    nm[t] = 0;
+    s.fl[g.t] = allowed;
+    hit[g.t] = 0;
   }
+  uf_seed(g, allowed, s.lbl_f);
   __syncthreads();
-  label_by_class(g, fb, lbl_r);
-  const int my_r = other ? lbl_r[t] : -1;
-  const int my_c = own ? lbl_s[t] : -1;
+  uf_hook(g, s.fl, s.lbl_f);
+  __syncthreads();
+  const int r = uf_flatten(g, allowed, s.lbl_f);
+  if (seed && allowed) hit[r] = 1;
+  __syncthreads();
+  return allowed && hit[r];
+}
 
-  // potential vitality + min empty per region
-  if (other) {
-    if (empty && nbr_count(g, fa) == 0) atomicOr((int*)&bad[my_r], 1);
-    if (empty) atomicMin((int*)&rempty[my_r], t);
-  }
-  // deduped own chains adjacent to each empty cell (up, down, left, right)
-  int a[4];
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    int q = g.nb[d];
-    int l = (empty && q >= 0 && fa[q]) ? lbl_s[q] : -1;
-    for (int e = 0; e < d; ++e)
-      if (a[e] == l) l = -1;
-    a[d] = l;
-    if (g.cell) s.nbrA[d][t] = l;
-  }
-  __syncthreads();
-  // candidate vital chains per region root
-  const bool is_rroot = other && my_r == t;
-  if (is_rroot) {
-    int re = rempty[t];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s.cand[k][t] = re < g.nn ? s.nbrA[k][re] : -1;
-  }
-  __syncthreads();
-  // slot k is not vital if some empty cell of the region is not adjacent to
-  // that slot's chain
-  if (empty) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int c = s.cand[k][my_r];
-      bool member = c >= 0 && (a[0] == c || a[1] == c || a[2] == c || a[3] == c);
-      if (!member) atomicOr((int*)&nm[my_r], 1 << k);
-    }
-  }
-  __syncthreads();
-  int vital_bits = 0;     // valid at region roots
-  bool potential = false;
-  if (is_rroot) {
-    potential = !bad[t];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (potential && s.cand[k][t] >= 0 && !((nm[t] >> k) & 1))
-        vital_bits |= 1 << k;
-  }
-  __syncthreads();
+// What the pass-dead step knows of one cell for one colour.
+struct EyeCell {
+  bool m, o2, blocker, edge, interior, pre, cand_eye;
+  int corner_c, r2;
+};
 
-  // Benson iteration over per-chain alive bits
-  volatile int* alive = s.ra;     // chain root: alive
-  volatile int* unusable = s.rb;  // region root
-  volatile int* count = s.rc;     // chain root
-  if (g.cell) alive[t] = 1;
-  bool changed = true;
-  while (__syncthreads_or(changed)) {
-    changed = false;
-    if (g.cell) {
-      unusable[t] = 0;
-      count[t] = 0;
-    }
+// Inner-region refinement of colour k's eyes (false-eye life,
+// two-headed dragons): every thread of the block calls it; returns the
+// refined is_eye of this thread's cell. Ends on a barrier.
+__device__ bool refine_eyes(const Geo& g, Smem& s, int k, const EyeCell& e,
+                            bool is_eye) {
+  const int t = g.t;
+  volatile int* hit = s.rb[0];
+  volatile int* need = s.rb[1];
+  volatile uint8_t* fx = s.fx;
+  const bool bor = flood(g, s, e.blocker && e.edge, e.blocker, hit);
+  if (g.cell) {
+    fx[t] = e.blocker && !bor;
+    need[t] = 0;
+  }
+  __syncthreads();
+  const int corner_maybe = diag_count(g, fx);
+  const bool resc = e.pre && (e.interior ? e.corner_c - corner_maybe <= 1
+                                         : e.corner_c == corner_maybe);
+  if (resc) need[e.r2] = 1;
+  __syncthreads();
+  // the first INNER_SLOTS regions in cell order: a cell's rank among the
+  // flagged ones from per-warp ballots
+  const bool flagged = g.cell && need[t];
+  const unsigned w = __ballot_sync(0xffffffffu, flagged);
+  if ((t & 31) == 0) s.needw[t >> 5] = w;
+  __syncthreads();
+  int rank = __popc(w & ((1u << (t & 31)) - 1)), total = 0;
+#pragma unroll
+  for (int i = 0; i < MAXNN / 32; ++i) {
+    const int c = i < (int)(blockDim.x >> 5) ? __popc(s.needw[i]) : 0;
+    if (i < (t >> 5)) rank += c;
+    total += c;
+  }
+  if (flagged && rank < INNER_SLOTS) s.slots[rank] = t;
+  __syncthreads();
+  const int nslots = min(total, INNER_SLOTS);
+  for (int j = 0; j < nslots; ++j) {
+    const bool in_region = e.o2 && e.r2 == s.slots[j];
+    const bool allowed = e.m && !in_region;
+    const bool out = flood(g, s, allowed && e.edge, allowed, hit);
+    // inner = allowed & ~outer; corner test on blockers outside `inner`
+    if (g.cell) fx[t] = s.blk[k][t] && !(allowed && !out);
     __syncthreads();
-    if (other) {
-      bool dead_adj = false;
+    const int cc = diag_count(g, fx);
+    const bool ok2 = e.interior ? cc <= 1 : cc == 0;
+    if (e.cand_eye && in_region && ok2) is_eye = true;
+  }
+  __syncthreads();
+  return is_eye;
+}
+
+// ---------------------------------------------------------------------------
+// Analysis of a board with side to move `tm` and ko vertex `ko`
+// (ops/analysis.py _analyze_board semantics): this thread's cell holds `v`
+// and is on the board when `m`; the routine writes both into s.st / s.msk
+// itself, so it needs no barrier before it, only that no other thread
+// still reads s.cls or the labels. Writes this thread's cell of every
+// output. Eleven barriers, three more for each extra Benson iteration.
+// ---------------------------------------------------------------------------
+__device__ void analyze_board(const Geo& g, Smem& s, int8_t v, bool m, int tm,
+                              int ko, bool* legal, int* libs, int* own_out,
+                              bool* safe, int* sown) {
+  const int t = g.t;
+  const bool empty = m && v == 0;
+  const bool stone = m && v != 0;
+  bool own[2], other[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    own[k] = m && v == k + 1;
+    other[k] = m && !own[k];
+  }
+
+  // ---- A: seeds (chains of both colours and empty regions in one class
+  // map; each colour's Benson regions) and per-root flags cleared
+  if (g.cell) {
+    s.st[t] = v;
+    s.msk[t] = m;
+    s.cls[t] = m ? (uint8_t)(v + 1) : 0;
+    s.libcnt[t] = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      s.oth[k][t] = other[k];
+      s.reach[k][t] = 0;
+      s.bad[k][t] = 0;
+      s.rb[k][t] = BIG;
+      s.alive[k][t] = 1;
+      s.unus[0][k][t] = 0;
+      s.cnt[0][k][t] = 0;
 #pragma unroll
       for (int d = 0; d < 4; ++d) {
-        int q = g.nb[d];
-        if (q >= 0 && fa[q] && !alive[lbl_s[q]]) dead_adj = true;
+        s.cand[k][d][t] = -1;
+        s.nonvital[k][d][t] = 0;
       }
-      if (dead_adj) unusable[my_r] = 1;
     }
-    __syncthreads();
-    if (is_rroot && !unusable[t]) {
+  }
+  uf_seed(g, m ? (uint8_t)(v + 1) : 0, s.lbl_s);
+  uf_seed(g, other[0], s.lbl_r[0]);
+  uf_seed(g, other[1], s.lbl_r[1]);
+  __syncthreads();
+  // ---- B: hook all three labellings
+  uf_hook(g, s.cls, s.lbl_s);
+  uf_hook(g, s.oth[0], s.lbl_r[0]);
+  uf_hook(g, s.oth[1], s.lbl_r[1]);
+  __syncthreads();
+  // ---- C: roots; flags each empty cell raises at its own roots
+  const int my_s = uf_flatten(g, m, s.lbl_s);
+  int my_r[2];
+  my_r[0] = uf_flatten(g, other[0], s.lbl_r[0]);
+  my_r[1] = uf_flatten(g, other[1], s.lbl_r[1]);
+  int8_t nc[4];   // neighbour stones, -1 off the board
+  bool nb_own[2] = {false, false};
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if ((vital_bits >> k) & 1) atomicAdd((int*)&count[s.cand[k][t]], 1);
+  for (int d = 0; d < 4; ++d) {
+    const int q = g.nb[d];
+    nc[d] = (q >= 0 && s.msk[q]) ? s.st[q] : -1;
+    if (nc[d] > 0) nb_own[nc[d] - 1] = true;
+  }
+  if (empty) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (nb_own[k]) s.reach[k][my_s] = 1;
+      else s.bad[k][my_r[k]] = 1;      // region not potential
+      s.rb[k][my_r[k]] = t;            // one of its empty cells
+    }
+  }
+  __syncthreads();
+  // ---- D: liberties (each empty cell adds one to each distinct adjacent
+  // chain); the empty cell that won rb hands its adjacent own chains to
+  // the region root as candidates
+  int na[4];      // the distinct chains next to an empty cell, by slot
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    int l = (empty && nc[d] > 0) ? s.lbl_s[g.nb[d]] : -1;
+    for (int e = 0; e < d; ++e)
+      if (na[e] == l) l = -1;
+    na[d] = l;
+    if (l >= 0) atomicAdd(&s.libcnt[l], 1);
+  }
+  int a[2][4];   // own chains of colour k next to this empty cell, by slot
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) a[k][d] = nc[d] == k + 1 ? na[d] : -1;
+    if (empty && s.rb[k][my_r[k]] == t)
+#pragma unroll
+      for (int d = 0; d < 4; ++d) s.cand[k][d][my_r[k]] = (int16_t)a[k][d];
+  }
+  __syncthreads();
+  // ---- E: liberties, legality, reach ownership; slot d of a region is
+  // not vital if some empty cell of the region is not next to its chain
+  const int my_libs = stone ? min(s.libcnt[my_s], NUM_LIBS) : 0;
+  bool ok = false;
+  const int8_t own_c = (int8_t)(tm + 1), opp_c = (int8_t)(2 - tm);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    if (nc[d] < 0) continue;
+    if (nc[d] == 0) {
+      ok = true;
+    } else {
+      const int lq = min(s.libcnt[s.lbl_s[g.nb[d]]], NUM_LIBS);
+      if (nc[d] == own_c && lq >= 2) ok = true;
+      if (nc[d] == opp_c && lq == 1) ok = true;
+    }
+  }
+  const bool is_legal = empty && t != ko && ok;
+  const bool reach_b = empty && s.reach[0][my_s], reach_w = empty && s.reach[1][my_s];
+  const int own_area = (v == 1 && m ? 1 : 0) - (v == 2 && m ? 1 : 0) +
+                       (reach_b && !reach_w ? 1 : 0) - (reach_w && !reach_b ? 1 : 0);
+  if (empty) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int c = s.cand[k][d][my_r[k]];
+        const bool member = c >= 0 && (a[k][0] == c || a[k][1] == c ||
+                                       a[k][2] == c || a[k][3] == c);
+        if (!member) s.nonvital[k][d][my_r[k]] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  // ---- F: vital slots per region root; the first Benson count (every
+  // chain alive, so no region is unusable)
+  int vital[2] = {0, 0};
+  bool rroot[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    rroot[k] = other[k] && my_r[k] == t;
+    if (!rroot[k]) continue;
+    const bool potential = !s.bad[k][t];
+    s.pot[k][t] = potential;
+    if (!potential) continue;
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      if (s.cand[k][d][t] >= 0 && !s.nonvital[k][d][t]) {
+        vital[k] |= 1 << d;
+        atomicAdd(&s.cnt[0][k][s.cand[k][d][t]], 1);
+      }
+  }
+  __syncthreads();
+  // ---- G: Benson iteration, both colours until both converge. Counts
+  // and unusable flags alternate between two buffers, so that the
+  // buffer of the next iteration is cleared while this one is read.
+  int p = 0;
+  for (;;) {
+    bool changed = false;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (own[k] && my_s == t && s.alive[k][t] && s.cnt[p][k][t] < 2) {
+        s.alive[k][t] = 0;
+        changed = true;
+      }
+    if (g.cell) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        s.unus[p ^ 1][k][t] = 0;
+        s.cnt[p ^ 1][k][t] = 0;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+    p ^= 1;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!other[k]) continue;
+      bool dead_adj = false;
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        if (nc[d] == k + 1 && !s.alive[k][s.lbl_s[g.nb[d]]]) dead_adj = true;
+      if (dead_adj) s.unus[p][k][my_r[k]] = 1;
     }
     __syncthreads();
-    if (own && my_c == t && alive[t] && count[t] < 2) {
-      alive[t] = 0;
-      changed = true;
-    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (rroot[k] && !s.unus[p][k][t]) {
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+          if ((vital[k] >> d) & 1) atomicAdd(&s.cnt[p][k][s.cand[k][d][t]], 1);
+      }
+    __syncthreads();
   }
-  // `unusable` is consistent with the final alive set: the last pass made
+  // `unus[p]` is consistent with the final alive set: the last pass made
   // no change
-  const bool alive_cell = own && alive[my_c];
-  __syncthreads();
-  // vital regions (potential & usable) per root -> spread to cells
-  volatile int* potr = s.rd;
-  if (g.cell) potr[t] = 0;
-  __syncthreads();
-  if (is_rroot) potr[t] = potential && !unusable[t];
-  __syncthreads();
-  const bool vcell = other && potr[my_r];
-  const bool blocker = alive_cell || vcell;
-  __syncthreads();
-
-  // pass-dead opponent regions
-  volatile uint8_t* fblk = s.fc;   // blockers
-  volatile uint8_t* fo2 = s.fd;    // others2
-  if (g.cell) {
-    fblk[t] = blocker;
-    fo2[t] = m && !blocker;
+  // ---- H: blockers; pass-dead region seeds
+  bool alive_cell[2], vcell[2], blocker[2], o2[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    alive_cell[k] = own[k] && s.alive[k][my_s];
+    vcell[k] = other[k] && s.pot[k][my_r[k]] && !s.unus[p][k][my_r[k]];
+    blocker[k] = alive_cell[k] || vcell[k];
+    o2[k] = m && !blocker[k];
+    if (g.cell) {
+      s.blk[k][t] = blocker[k];
+      s.o2[k][t] = o2[k];
+      s.ecount[k][t] = 0;
+      s.eadj[k][t] = 0;
+    }
+    uf_seed(g, o2[k], s.lbl_r2[k]);
   }
+  if (t == 0) s.flags = 0;
   __syncthreads();
-  volatile int* lbl_r2 = s.lbl_r2;
-  label_by_class(g, fo2, lbl_r2);
-  const bool o2 = m && !blocker;
-  const int my_r2 = o2 ? lbl_r2[t] : -1;
-
-  const bool no_c_side = nbr_count(g, fblk) == 0;
-  const int corner_c = diag_count(g, fblk);
+  // ---- I
+  uf_hook(g, s.o2[0], s.lbl_r2[0]);
+  uf_hook(g, s.o2[1], s.lbl_r2[1]);
+  __syncthreads();
+  // ---- J: eyes of each pass-dead region
   const bool interior = diag_count(g, s.msk) == 4;
-  const bool corner_ok = interior ? corner_c <= 1 : corner_c == 0;
-  const bool cand_eye = o2 && !opp && no_c_side;
-  bool is_eye = cand_eye && corner_ok;
   // edge: on-board cell with a side neighbour off the board
   bool edge = false;
   if (m) {
 #pragma unroll
     for (int d = 0; d < 4; ++d)
-      if (g.nb[d] < 0 || !s.msk[g.nb[d]]) edge = true;
+      if (nc[d] < 0) edge = true;
   }
-
-  // inner-region refinement (false-eye life / two-headed dragons)
-  const bool pre = cand_eye && !corner_ok;
-  if (__syncthreads_or(pre)) {
-    volatile uint8_t* fbor = s.fa;   // own flags are no longer needed
-    flood(g, s, blocker && edge, blocker, fbor);
-    volatile uint8_t* fmaybe = s.fb;
-    if (g.cell) fmaybe[t] = blocker && !fbor[t];
-    __syncthreads();
-    const int corner_maybe = diag_count(g, fmaybe);
-    const bool resc = pre && (interior ? corner_c - corner_maybe <= 1
-                                       : corner_c == corner_maybe);
-    volatile int* need = s.ra;
-    if (g.cell) need[t] = 0;
-    __syncthreads();
-    if (resc) need[my_r2] = 1;
-    __syncthreads();
-    if (t == 0) {
-      int k = 0;
-      for (int c = 0; c < g.nn && k < INNER_SLOTS; ++c)
-        if (need[c]) s.slots[k++] = c;
-      s.scal[0] = k;
-    }
-    __syncthreads();
-    const int nslots = s.scal[0];
-    for (int k = 0; k < nslots; ++k) {
-      const int root = s.slots[k];
-      const bool in_region = o2 && my_r2 == root;
-      const bool allowed = m && !in_region;
-      volatile uint8_t* fout = s.fa;
-      flood(g, s, allowed && edge, allowed, fout);
-      // inner = allowed & ~outer; corner test on blockers outside `inner`
-      volatile uint8_t* fbi = s.fb;
-      if (g.cell) fbi[t] = fblk[t] && !(allowed && !fout[t]);
-      __syncthreads();
-      const int cc = diag_count(g, fbi);
-      const bool ok2 = interior ? cc <= 1 : cc == 0;
-      if (cand_eye && in_region && ok2) is_eye = true;
-      __syncthreads();
-    }
-  }
-
-  // eye count per pass-dead region, minus one for two adjacent eyes
-  volatile uint8_t* feye = s.fa;
-  volatile int* ecount = s.ra;
-  volatile int* eadj = s.rb;
-  __syncthreads();
-  if (g.cell) {
-    feye[t] = is_eye;
-    ecount[t] = 0;
-    eadj[t] = 0;
+  EyeCell e[2];
+  bool is_eye[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r2 = uf_flatten(g, o2[k], s.lbl_r2[k]);
+    const int corner_c = diag_count(g, s.blk[k]);
+    const bool corner_ok = interior ? corner_c <= 1 : corner_c == 0;
+    const bool cand_eye = o2[k] && v != 2 - k && nbr_count(g, s.blk[k]) == 0;
+    e[k] = EyeCell{m, o2[k], blocker[k], edge, interior, cand_eye && !corner_ok,
+                   cand_eye, corner_c, r2};
+    is_eye[k] = cand_eye && corner_ok;
+    if (e[k].pre) atomicOr(&s.flags, 1 << k);
+    if (g.cell) s.eye[k][t] = is_eye[k];
+    if (is_eye[k]) atomicAdd(&s.ecount[k][r2], 1);
   }
   __syncthreads();
-  if (is_eye) {
-    atomicAdd((int*)&ecount[my_r2], 1);
+  // ---- K: the refinement where a candidate eye needs it (rare), then
+  // two adjacent eyes count as one
+  const int flags = s.flags;
+  if (flags) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if ((flags >> k) & 1) is_eye[k] = refine_eyes(g, s, k, e[k], is_eye[k]);
+    if (g.cell) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        s.eye[k][t] = is_eye[k];
+        s.ecount[k][t] = 0;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (is_eye[k]) atomicAdd(&s.ecount[k][e[k].r2], 1);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (!is_eye[k]) continue;
     bool adj = false;
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      int q = g.nb[d];
-      if (q >= 0 && feye[q] && fo2[q] && lbl_r2[q] == my_r2) adj = true;
+      const int q = g.nb[d];
+      if (q >= 0 && s.eye[k][q] && s.o2[k][q] && s.lbl_r2[k][q] == e[k].r2) adj = true;
     }
-    if (adj) eadj[my_r2] = 1;
+    if (adj) s.eadj[k][e[k].r2] = 1;
   }
   __syncthreads();
-  bool pass_dead = false;
-  if (o2) {
-    int c = ecount[my_r2];
-    int eff = c - ((c == 2 && eadj[my_r2]) ? 1 : 0);
-    pass_dead = eff < 2;
-  }
-  if (g.cell) s.pa[color][t] = alive_cell || vcell || pass_dead;
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// Analysis of the board in s.st with side to move `tm` and ko vertex `ko`
-// (ops/analysis.py _analyze_board semantics). Writes this thread's cell of
-// every output.
-// ---------------------------------------------------------------------------
-__device__ void analyze_board(const Geo& g, Smem& s, int tm, int ko,
-                              bool* legal, int* libs, int* own_out,
-                              bool* safe, int* sown) {
-  const int t = g.t;
-  const bool m = g.cell && s.msk[t];
-  const int8_t v = g.cell ? s.st[t] : 0;
-  const bool empty = m && v == 0;
-  const bool black = m && v == 1;
-  const bool white = m && v == 2;
-
-  // chain labels of both colours at once (class = stone colour on board)
-  volatile uint8_t* cls = s.fa;
-  if (g.cell) {
-    cls[t] = m ? (uint8_t)v : 0;
-    s.libcnt[t] = 0;
-  }
-  __syncthreads();
-  label_by_class(g, cls, s.lbl_s);
-  volatile int* lbl = s.lbl_s;
-
-  // exact liberties: every empty cell adds one to each distinct adjacent chain
-  if (empty) {
-    int seen[4];
+  // ---- L: pass-dead regions; outputs
+  bool pa[2];
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      int q = g.nb[d];
-      int l = (q >= 0 && cls[q]) ? lbl[q] : -1;
-      for (int e = 0; e < d; ++e)
-        if (seen[e] == l) l = -1;
-      seen[d] = l;
-      if (l >= 0) atomicAdd(&s.libcnt[l], 1);
+  for (int k = 0; k < 2; ++k) {
+    bool pass_dead = false;
+    if (o2[k]) {
+      const int c = s.ecount[k][e[k].r2];
+      pass_dead = c - ((c == 2 && s.eadj[k][e[k].r2]) ? 1 : 0) < 2;
     }
+    pa[k] = alive_cell[k] || vcell[k] || pass_dead;
   }
-  __syncthreads();
-  const int my_libs = (black || white) ? min(s.libcnt[lbl[t]], NUM_LIBS) : 0;
-
-  // legality: empty & not ko & (empty nbr | own chain >= 2 libs | opp in atari)
-  bool ok = false;
-  const uint8_t own_c = (uint8_t)(tm + 1), opp_c = (uint8_t)(2 - tm);
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    int q = g.nb[d];
-    if (q < 0 || !s.msk[q]) continue;
-    uint8_t c = cls[q];
-    if (c == 0) ok = true;
-    else {
-      int lq = min(s.libcnt[lbl[q]], NUM_LIBS);
-      if (c == own_c && lq >= 2) ok = true;
-      if (c == opp_c && lq == 1) ok = true;
-    }
-  }
-  const bool is_legal = empty && t != ko && ok;
-
-  // Tromp-Taylor reach ownership: both colours' floods through empties
-  volatile uint8_t* fb = s.fb;
-  volatile uint8_t* fcb = s.fc;
-  if (g.cell) fb[t] = black;
-  if (g.cell) fcb[t] = white;
-  __syncthreads();
-  const bool seed_b = empty && nbr_count(g, fb) > 0;
-  const bool seed_w = empty && nbr_count(g, fcb) > 0;
-  __syncthreads();
-  volatile uint8_t* rb = s.fd;
-  flood(g, s, seed_b, empty, rb);
-  const bool reach_b = g.cell && rb[t];
-  __syncthreads();
-  flood(g, s, seed_w, empty, rb);
-  const bool reach_w = g.cell && rb[t];
-  const int own = (black ? 1 : 0) - (white ? 1 : 0) +
-                  ((reach_b && !reach_w) ? 1 : 0) - ((reach_w && !reach_b) ? 1 : 0);
-  __syncthreads();
-
-  // Benson for both colours (labels of stone chains stay in s.lbl_s)
-  pass_alive(g, s, 0);
-  pass_alive(g, s, 1);
-
   if (g.cell) {
-    const bool pb = s.pa[0][t], pw = s.pa[1][t];
     legal[t] = is_legal;
     libs[t] = my_libs;
-    own_out[t] = own;
-    safe[t] = pb || pw;
-    sown[t] = pw ? -1 : (pb ? 1 : own);
+    own_out[t] = own_area;
+    safe[t] = pa[0] || pa[1];
+    sown[t] = pa[1] ? -1 : (pa[0] ? 1 : own_area);
   }
-}
-
-template <class S>
-__device__ __forceinline__ void load_board(const Geo& g, S& s,
-                                           const int8_t* stones, int size) {
-  if (g.cell) {
-    s.st[g.t] = stones[g.t];
-    s.msk[g.t] = (g.y < size && g.x < size) ? 1 : 0;
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
-// Play `action` for `tm` on the board in s.st (board.py play_move
+// Play `action` for `tm` on board `b` of `stones` (board.py play_move
 // semantics: place, remove opponent chains left without a liberty, simple
-// ko) and hash the child (XOR of the per-cell Zobrist keys). A pass (action
-// outside [0, nn)) leaves the board as loaded. Writes the child's stones,
-// capture count, ko and hash words of board `b`; leaves the child in s.st
-// and returns its ko vertex. Uses s.fa, s.lbl_s, s.ra, s.rb and s.scal.
+// ko) and hash the child (XOR of the per-cell Zobrist keys). A pass
+// (action outside [0, nn)) leaves the board as loaded. Writes the child's
+// stones, capture count, ko and hash words of board `b`; leaves the child
+// in s.st / s.msk and returns its ko vertex. Four barriers, the first one
+// after the load; none at the end (s.cls, s.lbl_s and s.haslib are free
+// again, s.st and s.msk are read until the caller's next barrier).
 // ---------------------------------------------------------------------------
 template <class S>
-__device__ int play_and_hash(const Geo& g, S& s, int tm, int v,
+__device__ int play_and_hash(const Geo& g, S& s, const int8_t* __restrict__ stones,
+                             int size, int tm, int v,
                              const int* __restrict__ zob, long b,
                              int8_t* new_stones, int* ncap_out, int* ko_out,
                              int* hash_out) {
@@ -459,85 +503,89 @@ __device__ int play_and_hash(const Geo& g, S& s, int tm, int v,
   const long off = b * g.nn;
   const bool is_pass = v >= g.nn || v < 0;
   const int8_t own_c = (int8_t)(tm + 1), opp_c = (int8_t)(2 - tm);
-  if (!is_pass && t == v && s.msk[t]) s.st[t] = own_c;
-  volatile uint8_t* cls = s.fa;
-  volatile int* haslib = s.ra;
-  volatile int* capv = s.rb;
+  const bool m = g.cell && g.y < size && g.x < size;
+  int8_t c0 = g.cell ? stones[off + t] : 0;
+  if (!is_pass && t == v && m) c0 = own_c;
+  const bool opp = m && c0 == opp_c;
   if (g.cell) {
-    cls[t] = (s.msk[t] && s.st[t] == opp_c) ? 1 : 0;
-    haslib[t] = 0;
+    s.st[t] = c0;
+    s.msk[t] = m;
+    s.cls[t] = opp;
+    s.haslib[t] = 0;
   }
-  if (t == 0) capv[0] = BIG;
+  uf_seed(g, opp, s.lbl_s);
+  if (t == 0) {
+    s.capv = BIG;
+    s.ncap = 0;
+    s.hw[0] = 0;
+    s.hw[1] = 0;
+  }
   __syncthreads();
-  label_by_class(g, cls, s.lbl_s);
-  const bool opp1 = g.cell && cls[t];
-  if (opp1) {
+  uf_hook(g, s.cls, s.lbl_s);
+  __syncthreads();
+  // opponent chains: does each have a liberty?
+  const int root = uf_flatten(g, opp, s.lbl_s);
+  if (opp) {
     bool lib = false;
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      int q = g.nb[d];
+      const int q = g.nb[d];
       if (q >= 0 && s.msk[q] && s.st[q] == 0) lib = true;
     }
-    if (lib) haslib[s.lbl_s[t]] = 1;
+    if (lib) s.haslib[root] = 1;
   }
   __syncthreads();
-  const bool captured = !is_pass && opp1 && !haslib[s.lbl_s[t]];
-  const int n_cap = __syncthreads_count(captured);
+  // captures, and the hash of the child
+  const bool captured = !is_pass && opp && !s.haslib[root];
+  const int8_t c1 = captured ? 0 : c0;
   if (captured) {
-    atomicMin((int*)&capv[0], t);
+    atomicAdd(&s.ncap, 1);
+    atomicMin(&s.capv, t);
     s.st[t] = 0;
   }
-  __syncthreads();
-  if (!is_pass && t == v) {
-    int own_nb = 0, lib_nb = 0;
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      int q = g.nb[d];
-      if (q < 0 || !s.msk[q]) continue;
-      own_nb += s.st[q] == own_c;
-      lib_nb += s.st[q] == 0;
-    }
-    s.scal[1] = (n_cap == 1 && own_nb == 0 && lib_nb == 1) ? capv[0] : -1;
-  }
-  if (is_pass && t == 0) s.scal[1] = -1;
-  __syncthreads();
-  const int ko2 = s.scal[1];
-
-  // Zobrist hash of the child: XOR of the per-cell keys
   unsigned w0 = 0, w1 = 0;
-  if (g.cell) {
-    int8_t c = s.st[t];
-    if (c == 1) {
-      w0 = (unsigned)zob[0 * g.nn + t];
-      w1 = (unsigned)zob[1 * g.nn + t];
-    } else if (c == 2) {
-      w0 = (unsigned)zob[2 * g.nn + t];
-      w1 = (unsigned)zob[3 * g.nn + t];
-    }
+  if (c1 == 1) {
+    w0 = (unsigned)zob[0 * g.nn + t];
+    w1 = (unsigned)zob[1 * g.nn + t];
+  } else if (c1 == 2) {
+    w0 = (unsigned)zob[2 * g.nn + t];
+    w1 = (unsigned)zob[3 * g.nn + t];
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     w0 ^= __shfl_xor_sync(0xffffffffu, w0, o);
     w1 ^= __shfl_xor_sync(0xffffffffu, w1, o);
   }
-  if (t == 0) {
-    s.scal[2] = 0;
-    s.scal[3] = 0;
-  }
-  __syncthreads();
   if ((t & 31) == 0) {
-    atomicXor((unsigned*)&s.scal[2], w0);
-    atomicXor((unsigned*)&s.scal[3], w1);
+    atomicXor(&s.hw[0], w0);
+    atomicXor(&s.hw[1], w1);
   }
   __syncthreads();
-  if (g.cell) new_stones[off + t] = s.st[t];
+  // simple ko: one stone captured by a stone with no own neighbour and a
+  // single liberty; every thread reads the move's neighbours itself
+  int ko2 = -1;
+  const int n_cap = s.ncap;
+  if (!is_pass && n_cap == 1) {
+    const int vy = v / g.n, vx = v % g.n;
+    int own_nb = 0, lib_nb = 0;
+    const int nbv[4] = {vy > 0 ? v - g.n : -1, vy < g.n - 1 ? v + g.n : -1,
+                        vx > 0 ? v - 1 : -1, vx < g.n - 1 ? v + 1 : -1};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int q = nbv[d];
+      if (q < 0 || !s.msk[q]) continue;
+      own_nb += s.st[q] == own_c;
+      lib_nb += s.st[q] == 0;
+    }
+    if (own_nb == 0 && lib_nb == 1) ko2 = s.capv;
+  }
+  if (g.cell) new_stones[off + t] = c1;
   if (t == 0) {
-    ncap_out[b] = is_pass ? 0 : n_cap;
+    ncap_out[b] = n_cap;
     ko_out[b] = ko2;
-    hash_out[2 * b] = s.scal[2];
-    hash_out[2 * b + 1] = s.scal[3];
+    hash_out[2 * b] = (int)s.hw[0];
+    hash_out[2 * b + 1] = (int)s.hw[1];
   }
-  __syncthreads();
   return ko2;
 }
 
@@ -550,9 +598,10 @@ board_analysis_kernel(const int8_t* __restrict__ stones,
   const Geo g = make_geo(n);
   const long b = blockIdx.x;
   const long off = b * g.nn;
-  load_board(g, s, stones + off, size[b]);
-  analyze_board(g, s, to_move[b], ko[b], legal + off, libs + off, own + off,
-                safe + off, sown + off);
+  const int sz = size[b];
+  const int8_t v = g.cell ? stones[off + g.t] : 0;
+  analyze_board(g, s, v, g.cell && g.y < sz && g.x < sz, to_move[b], ko[b],
+                legal + off, libs + off, own + off, safe + off, sown + off);
 }
 
 __global__ void __launch_bounds__(MAXNN)
@@ -567,15 +616,12 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
   const Geo g = make_geo(n);
   const long b = blockIdx.x;
   const long off = b * g.nn;
-  load_board(g, s, stones + off, size[b]);
-
   const int tm = to_move[b];
-  const int ko2 = play_and_hash(g, s, tm, action[b], zob, b, new_stones,
-                                ncap_out, ko_out, hash_out);
-
+  const int ko2 = play_and_hash(g, s, stones, size[b], tm, action[b], zob, b,
+                                new_stones, ncap_out, ko_out, hash_out);
   // ---- analysis of the child, side to move flipped ----
-  analyze_board(g, s, 1 - tm, ko2, legal + off, libs + off, own + off,
-                safe + off, sown + off);
+  analyze_board(g, s, g.cell ? s.st[g.t] : 0, g.cell && s.msk[g.t], 1 - tm,
+                ko2, legal + off, libs + off, own + off, safe + off, sown + off);
 }
 
 // ---------------------------------------------------------------------------
@@ -585,7 +631,8 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
 // chain's "has a liberty" and "has a second liberty"; here both come from
 // the exact liberty count per chain root (one labelling of both colours,
 // one shared-memory atomic pass), where the TPU kernel propagates a min and
-// a negated min over float labels. Two labellings per board in all, in a
+// a negated min over float labels. The child's labelling is still the
+// relaxation (label_by_class); its play half shares play_and_hash(). A
 // 5.8 KB shared struct: residency is set by the 384 threads a block, five
 // blocks per SM.
 // ---------------------------------------------------------------------------
@@ -602,17 +649,16 @@ step_legal_kernel(const int8_t* __restrict__ stones,
   const int t = g.t;
   const long b = blockIdx.x;
   const long off = b * g.nn;
-  load_board(g, s, stones + off, size[b]);
   const int tm = to_move[b];
-  const int ko2 = play_and_hash(g, s, tm, action[b], zob, b, new_stones,
-                                ncap_out, ko_out, hash_out);
+  const int ko2 = play_and_hash(g, s, stones, size[b], tm, action[b], zob, b,
+                                new_stones, ncap_out, ko_out, hash_out);
 
   // child chains of both colours (class = stone colour on the board)
   const bool m = g.cell && s.msk[t];
   const int8_t v = g.cell ? s.st[t] : 0;
   const bool empty = m && v == 0;
-  volatile uint8_t* cls = s.fa;
-  volatile int* libcnt = s.ra;
+  volatile uint8_t* cls = s.cls;
+  volatile int* libcnt = s.libcnt;
   if (g.cell) {
     cls[t] = m ? (uint8_t)v : 0;
     libcnt[t] = 0;

@@ -8,14 +8,18 @@
 // vmap nesting into one launch on the TPU.
 //
 // What bounds them on this card: not bytes (361 bytes in and at most
-// 2.9 KB out a board) but the serial labelling sweeps of each board, each a
-// shared-memory pass and a block-wide barrier. Design: one block per board
-// and one thread per cell, label_by_class() (board.cuh: in-place min-label
-// relaxation with pointer jumping, which ends on the first pass without a
-// write) instead of the TPU kernels' dilation and min-propagation rings
-// with a float sum as the convergence test; the flood marks the labels of
-// seeded cells and broadcasts them back. Many boards in flight (five
-// blocks of 384 threads per SM) hide each board's barrier latency.
+// 2.9 KB out a board) but one board's serial chain of block-wide barriers:
+// at 512 boards the whole grid is resident (five blocks of 384 threads per
+// SM), so a launch takes about one board's latency. Design: one block per
+// board and one thread per cell, instead of the TPU kernels' dilation and
+// min-propagation rings with a float sum as the convergence test.
+//   - labels_kernel: the union-find labelling of board.cuh, two barriers
+//     whatever the board; each thread writes its own root, known without a
+//     third barrier.
+//   - flood_kernel: still label_by_class() (in-place min-label relaxation
+//     with pointer jumping, one barrier a pass, ending on the first pass
+//     without a write); the flood marks the labels of seeded cells and
+//     broadcasts them back.
 
 #include "board.cuh"
 
@@ -29,10 +33,14 @@ labels_kernel(const uint8_t* __restrict__ mask, long long* out, int n) {
   __shared__ int lbl[MAXNN];
   const Geo g = make_geo(n);
   const long off = (long)blockIdx.x * g.nn;
-  if (g.cell) cls[g.t] = mask[off + g.t] ? 1 : 0;
+  const bool on = g.cell && mask[off + g.t];
+  if (g.cell) cls[g.t] = on ? 1 : 0;
+  uf_seed(g, on, lbl);
   __syncthreads();
-  label_by_class(g, cls, lbl);
-  if (g.cell) out[off + g.t] = cls[g.t] ? lbl[g.t] : -1;
+  uf_hook(g, cls, lbl);
+  __syncthreads();
+  const int root = uf_flatten(g, on, lbl);
+  if (g.cell) out[off + g.t] = on ? root : -1;
 }
 
 // out = cells of `allowed` connected within `allowed` to a cell of

@@ -186,7 +186,12 @@ def ladder_prep_plain(stones, size, ko):
 def _lib():
     from sayuri_tpu_torch.ops import build
 
-    lib = build.load("analysis")
+    return bind(build.load("analysis"))
+
+
+def bind(lib):
+    """Set the argument and result types of analysis.cu's launchers on a
+    loaded library; returns it."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_board_analysis.argtypes = [vp] * 4 + [vp] * 5 + [i, i, vp]
     lib.launch_board_analysis.restype = i

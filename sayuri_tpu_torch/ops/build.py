@@ -42,27 +42,33 @@ def find_nvcc() -> str:
     return found
 
 
+def compile_library(src: Path, out: Path) -> None:
+    """nvcc `src` (its headers beside it) into the shared library `out`; the
+    ptxas report goes to out's directory as lib<name>.ptxas.txt."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {src} (rc={res.returncode}):\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    (out.parent / f"lib{src.stem}.ptxas.txt").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if stale) and load csrc/<name>.cu; cached per process."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC_DIR / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
     newest = max(f.stat().st_mtime for f in (src, *CSRC_DIR.glob("*.cuh")))
     if not out.exists() or out.stat().st_mtime < newest:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src} (rc={res.returncode}):\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        (BUILD_DIR / f"lib{name}.ptxas.txt").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
+        compile_library(src, out)
     BUILD_SECONDS[name] = time.monotonic() - t0
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib

@@ -39,7 +39,12 @@ def reset_launch_counts():
 def _lib():
     from sayuri_tpu_torch.ops import build
 
-    lib = build.load("flood")
+    return bind(build.load("flood"))
+
+
+def bind(lib):
+    """Set the argument and result types of flood.cu's launchers on a
+    loaded library; returns it."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.launch_labels.argtypes = [vp, vp, ll, i, vp]
     lib.launch_labels.restype = i

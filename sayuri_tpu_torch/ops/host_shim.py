@@ -1,0 +1,290 @@
+"""Run the board kernels of csrc/flood.cu and csrc/analysis.cu on the CPU.
+
+g++ compiles each source, cut before its ``extern "C"`` launchers, against
+csrc/host_shim.h (each CUDA thread a fiber, shared memory static, barriers,
+warp operations and atomics emulated; see that file), with small C entry
+points per source that run a kernel over a batch of boards. The wrappers below
+take and return CPU tensors in the form of the CUDA wrappers of
+ops/flood.py and ops/analysis.py, plus the number of block barriers each
+board passed.
+
+    python -m sayuri_tpu_torch.ops.host_shim [CSRC_DIR ...]
+
+prints, for the kernels of each source directory (default: the package's
+csrc/), the barriers a board over the 256 random 19x19 positions of
+chip_smoke.py phase 3 (median and maximum) and over the stress boards of
+game/positions.py, as one JSON line.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from sayuri_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
+
+SHIM_HEADER = CSRC_DIR / "host_shim.h"
+
+_TAIL = "long long* barriers, unsigned long long schedule"
+_ENTRY_POINTS = {
+    "flood": f"""
+extern "C" void shim_labels(const void* mask, void* out, long long boards,
+                            int n, {_TAIL}) {{
+  shim::launch(boards, threads_for(n), [=] {{
+    labels_kernel((const uint8_t*)mask, (long long*)out, n);
+  }}, barriers, schedule);
+}}
+extern "C" void shim_flood(const void* seed, const void* allowed, void* out,
+                           long long boards, int n, {_TAIL}) {{
+  shim::launch(boards, threads_for(n), [=] {{
+    flood_kernel((const uint8_t*)seed, (const uint8_t*)allowed, (bool*)out, n);
+  }}, barriers, schedule);
+}}
+""",
+    "analysis": f"""
+extern "C" void shim_board_analysis(const void* stones, const void* size,
+    const void* ko, const void* to_move, void* legal, void* libs, void* own,
+    void* safe, void* sown, int batch, int n, {_TAIL}) {{
+  shim::launch(batch, threads_for(n), [=] {{
+    board_analysis_kernel((const int8_t*)stones, (const int*)size,
+        (const int*)ko, (const int*)to_move, (bool*)legal, (int*)libs,
+        (int*)own, (bool*)safe, (int*)sown, n);
+  }}, barriers, schedule);
+}}
+extern "C" void shim_step_analysis(const void* stones, const void* size,
+    const void* ko, const void* to_move, const void* action, const void* zob,
+    void* new_stones, void* ncap, void* new_ko, void* hash, void* legal,
+    void* libs, void* own, void* safe, void* sown, int batch, int n,
+    {_TAIL}) {{
+  shim::launch(batch, threads_for(n), [=] {{
+    step_analysis_kernel((const int8_t*)stones, (const int*)size,
+        (const int*)ko, (const int*)to_move, (const int*)action,
+        (const int*)zob, (int8_t*)new_stones, (int*)ncap, (int*)new_ko,
+        (int*)hash, (bool*)legal, (int*)libs, (int*)own, (bool*)safe,
+        (int*)sown, n);
+  }}, barriers, schedule);
+}}
+extern "C" void shim_step_legal(const void* stones, const void* size,
+    const void* ko, const void* to_move, const void* action, const void* zob,
+    void* new_stones, void* ncap, void* new_ko, void* hash, void* legal,
+    int batch, int n, {_TAIL}) {{
+  shim::launch(batch, threads_for(n), [=] {{
+    step_legal_kernel((const int8_t*)stones, (const int*)size,
+        (const int*)ko, (const int*)to_move, (const int*)action,
+        (const int*)zob, (int8_t*)new_stones, (int*)ncap, (int*)new_ko,
+        (int*)hash, (bool*)legal, n);
+  }}, barriers, schedule);
+}}
+""",
+}
+
+
+def find_cxx() -> str | None:
+    """Path of g++ (or $CXX), None when there is none."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
+def _cut(src: str) -> str:
+    """The source up to its first extern "C" launcher."""
+    cut = src.find('\nextern "C"')
+    return src if cut < 0 else src[:cut + 1]
+
+
+@functools.lru_cache(maxsize=None)
+def build(csrc: str | Path = CSRC_DIR) -> ctypes.CDLL:
+    """Compile flood.cu and analysis.cu of `csrc` against the shim into one
+    shared library (cached under _build/ by the hash of its inputs) and
+    load it."""
+    csrc = Path(csrc).resolve()
+    cxx = find_cxx()
+    if cxx is None:
+        raise RuntimeError("host_shim: no C++ compiler (g++ or $CXX)")
+    units = {name: _cut((csrc / f"{name}.cu").read_text()) + _ENTRY_POINTS[name]
+             for name in _ENTRY_POINTS}
+    key = hashlib.sha256()
+    for text in (*units.values(), SHIM_HEADER.read_text(),
+                 *(p.read_text() for p in sorted(csrc.glob("*.cuh")))):
+        key.update(text.encode())
+    out_dir = BUILD_DIR / f"shim-{key.hexdigest()[:16]}"
+    lib = out_dir / "libshim.so"
+    if not lib.exists():
+        (out_dir / "inc").mkdir(parents=True, exist_ok=True)
+        (out_dir / "inc" / "cuda_runtime.h").write_text(
+            f'#pragma once\n#include "{SHIM_HEADER}"\n')
+        cpps = []
+        for name, text in units.items():
+            cpp = out_dir / f"{name}.cpp"
+            cpp.write_text(text)
+            cpps.append(str(cpp))
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-w",
+               "-U_FORTIFY_SOURCE", "-I", str(out_dir / "inc"), "-I", str(csrc),
+               "-o", str(tmp), *cpps]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"host_shim: g++ failed (rc={res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _run(fn, *args, boards, schedule):
+    barriers = torch.zeros(boards, dtype=torch.int64)
+    fn(*args, _p(barriers), ctypes.c_ulonglong(schedule))
+    return barriers
+
+
+def _lead(t):
+    n = t.shape[-1]
+    return t.numel() // (n * n), n
+
+
+def chain_labels(lib, mask, schedule=0):
+    """labels_kernel on [..., n, n] bool -> (int64 labels, barriers)."""
+    mask = mask.contiguous()
+    boards, n = _lead(mask)
+    out = torch.empty(mask.shape, dtype=torch.int64)
+    bar = _run(lib.shim_labels, _p(mask), _p(out), ctypes.c_longlong(boards),
+               ctypes.c_int(n), boards=boards, schedule=schedule)
+    return out, bar
+
+
+def flood(lib, seed, allowed, schedule=0):
+    """flood_kernel on [..., n, n] bool -> (bool flood, barriers)."""
+    seed, allowed = seed.contiguous(), allowed.contiguous()
+    boards, n = _lead(allowed)
+    out = torch.empty_like(allowed)
+    bar = _run(lib.shim_flood, _p(seed), _p(allowed), _p(out),
+               ctypes.c_longlong(boards), ctypes.c_int(n), boards=boards,
+               schedule=schedule)
+    return out, bar
+
+
+def _analysis_out(b, n):
+    return {"legal": torch.empty((b, n * n), dtype=torch.bool),
+            "libs": torch.empty((b, n, n), dtype=torch.int32),
+            "ownership": torch.empty((b, n, n), dtype=torch.int32),
+            "safe": torch.empty((b, n, n), dtype=torch.bool),
+            "score_ownership": torch.empty((b, n, n), dtype=torch.int32)}
+
+
+def _step_out(b, n):
+    return {"new_stones": torch.empty((b, n, n), dtype=torch.int8),
+            "n_captured": torch.empty((b,), dtype=torch.int32),
+            "new_ko": torch.empty((b,), dtype=torch.int32),
+            "new_hash": torch.empty((b, 2), dtype=torch.int32)}
+
+
+def _inputs(*ts):
+    return tuple(_p(t.contiguous()) for t in ts)
+
+
+def _zob(n):
+    from sayuri_tpu_torch.ops.analysis import _zobrist_rows
+
+    return _zobrist_rows(n, "cpu")
+
+
+def board_analysis(lib, stones, size, ko, to_move, schedule=0):
+    """board_analysis_kernel -> (the dict of ops.analysis.board_analysis,
+    barriers)."""
+    b, n = stones.shape[0], stones.shape[-1]
+    out = _analysis_out(b, n)
+    bar = _run(lib.shim_board_analysis, *_inputs(stones, size, ko, to_move),
+               *(_p(t) for t in out.values()), ctypes.c_int(b), ctypes.c_int(n),
+               boards=b, schedule=schedule)
+    return out, bar
+
+
+def step_and_analyze(lib, stones, size, ko, to_move, action, schedule=0):
+    """step_analysis_kernel -> (the dict of ops.analysis.step_and_analyze,
+    barriers)."""
+    b, n = stones.shape[0], stones.shape[-1]
+    step, ana = _step_out(b, n), _analysis_out(b, n)
+    bar = _run(lib.shim_step_analysis,
+               *_inputs(stones, size, ko, to_move, action, _zob(n)),
+               *(_p(t) for t in (*step.values(), *ana.values())),
+               ctypes.c_int(b), ctypes.c_int(n), boards=b, schedule=schedule)
+    step["new_hash"] = step["new_hash"].to(torch.int64) & 0xFFFFFFFF
+    return {**step, **ana}, bar
+
+
+def step_and_legal(lib, stones, size, ko, to_move, action, schedule=0):
+    """step_legal_kernel -> (the dict of ops.analysis.step_and_legal,
+    barriers)."""
+    b, n = stones.shape[0], stones.shape[-1]
+    step = _step_out(b, n)
+    legal = torch.empty((b, n * n), dtype=torch.bool)
+    bar = _run(lib.shim_step_legal,
+               *_inputs(stones, size, ko, to_move, action, _zob(n)),
+               *(_p(t) for t in step.values()), _p(legal),
+               ctypes.c_int(b), ctypes.c_int(n), boards=b, schedule=schedule)
+    step["new_hash"] = step["new_hash"].to(torch.int64) & 0xFFFFFFFF
+    return {**step, "legal": legal}, bar
+
+
+def colour_masks(stones, size):
+    """[3, B, n, n] bool: the empty, black and white cells on the board."""
+    from sayuri_tpu_torch.game import board as B
+
+    mask = B.board_mask(size, stones.shape[-1])
+    return torch.stack([(stones == c) & mask for c in (0, 1, 2)])
+
+
+def barrier_counts(lib, args):
+    """Barriers a board of each kernel on (stones, size, ko, to_move,
+    action): {kernel: [count per board]} (labels and flood over the colour
+    masks, the flood seeded by the cells next to an empty one)."""
+    from sayuri_tpu_torch.game import board as B
+
+    stones, size, ko, to_move, action = args
+    masks = colour_masks(stones, size)
+    seeds = masks & B.nbr_or(masks[0])
+    return {
+        "step_and_analyze": step_and_analyze(lib, *args)[1].tolist(),
+        "board_analysis": board_analysis(lib, *args[:4])[1].tolist(),
+        "step_and_legal": step_and_legal(lib, *args)[1].tolist(),
+        "chain_labels": chain_labels(lib, masks)[1].tolist(),
+        "flood": flood(lib, seeds, masks)[1].tolist(),
+    }
+
+
+def _summary(counts):
+    import statistics
+
+    return {k: {"median": statistics.median(v), "max": max(v), "boards": len(v)}
+            for k, v in counts.items()}
+
+
+def main(argv):
+    from sayuri_tpu_torch.game.positions import random_positions, stress_positions
+
+    dirs = argv or [str(CSRC_DIR)]
+    s, a = random_positions(19, 256, seed=0, max_moves=260)
+    random_args = (s.stones, s.size, s.ko, s.to_move, a)
+    stress_args = stress_positions(19)[:5]
+    report = {}
+    for d in dirs:
+        lib = build(d)
+        report[d] = {
+            "phase-3 positions (256 random 19x19)": _summary(barrier_counts(lib, random_args)),
+            "stress boards 19x19": _summary(barrier_counts(lib, stress_args)),
+        }
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
