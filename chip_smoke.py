@@ -23,7 +23,10 @@ no result line):
    ladder_planes_batch builds); ladder_planes_batch on the card equals the
    plain one on the CPU; on the goldens the four planes equal the
    reference's encoder planes 33-36. Kernels and plain versions timed on
-   the card at B=256.
+   the card at B=256; the searches' bounds count the plies the plain twins
+   ran on these lanes (for each search: the plies of its longest lane,
+   their sum, median, p90 and p99 over the searched lanes, the kernel's
+   ms a ply of the longest lane and that lane's time alone are printed).
 5. slice: bench_playouts(256, 96) (19x19, b6c96, bf16, random symmetry,
    root ladder planes), one warm-up search and three timed; launch counters
    prove the main path ran through all five kernels, each ladder kernel
@@ -94,6 +97,10 @@ SPIN_CYCLES = 50_000_000   # time_card's head start, about 25 ms at 1980 MHz
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 OPS_PER_CELL = 8
+# a ply of a ladder search (greedy step or chase descent) needs at least one
+# neighbour step, OPS_PER_CELL a row, over the lane's own, opponent and prey
+# rows on the board
+PLY_BOARDS = 3
 
 
 def phase(name):
@@ -118,6 +125,18 @@ def bound(nbytes, ops):
     operations."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lane_work(lanes, plies, outputs, n):
+    """(bytes, operations) a ladder search needs on these lanes: each valid
+    lane's two rows of words and four scalars read, every lane's valid flag
+    read and its `outputs` int32 results written; PLY_BOARDS * n rows of
+    OPS_PER_CELL operations for each ply the lanes ran (`plies`, from the
+    plain twin: the work depends on the data)."""
+    valid = lanes[6] > 0
+    v, L = int(valid.sum()), valid.numel()
+    nbytes = 4 * (v * (2 * lanes[0].shape[1] + 4) + L * (1 + outputs))
+    return nbytes, OPS_PER_CELL * PLY_BOARDS * n * int(plies.sum())
 
 
 def golden_positions(torch, np):
@@ -222,22 +241,30 @@ def golden19_positions(torch):
 
 
 class LaneSpy:
-    """Records the arguments and results of the ladder search wrappers
-    while ladder_planes_batch runs (to replay the same lanes through the
-    kernels)."""
+    """Stands in for the ladder search wrappers while ladder_planes_batch
+    runs on the CPU: runs their plain twins, which also count each lane's
+    plies, and records arguments, results and plies (to replay the same
+    lanes through the kernels and to count the work they need)."""
 
     def __init__(self, LK):
         self.LK = LK
         self.calls = {}
 
     def __enter__(self):
-        self.real = {k: getattr(self.LK, k) for k in ("run_greedy", "run_chases")}
-        for name, fn in self.real.items():
-            def spy(*args, _fn=fn, _name=name, **kw):
-                out = _fn(*args, **kw)
-                self.calls[_name] = (args, out)
-                return out
-            setattr(self.LK, name, spy)
+        LK = self.LK
+        self.real = {k: getattr(LK, k) for k in ("run_greedy", "run_chases")}
+
+        def greedy(*args, **kw):
+            res, forked, steps = LK.greedy_steps_plain(*args, **kw)
+            self.calls["run_greedy"] = (args, (res, forked), steps)
+            return res, forked
+
+        def chases(*args, **kw):
+            res, descents = LK.chase_descents_plain(*args, **kw)
+            self.calls["run_chases"] = (args, res, descents)
+            return res
+
+        LK.run_greedy, LK.run_chases = greedy, chases
         return self
 
     def __exit__(self, *exc):
@@ -411,8 +438,8 @@ def main():
         with LaneSpy(LK) as spy:
             cpu_planes[tag] = TL.ladder_planes_batch(*args_cpu)
         cpu_s = time.monotonic() - t_cpu
-        g_args, (g_res, g_forked) = spy.calls["run_greedy"]
-        c_args, c_res = spy.calls["run_chases"]
+        g_args, (g_res, g_forked), g_steps = spy.calls["run_greedy"]
+        c_args, c_res, c_descents = spy.calls["run_chases"]
         n = st.stones.shape[-1]
         g_dev = tuple(x.to(dev) for x in g_args[:7])
         c_dev = tuple(x.to(dev) for x in c_args[:7])
@@ -438,6 +465,8 @@ def main():
                   f"{int(gold_planes.sum())} marked cells")
         else:
             lanes_b256 = (args, g_dev, c_dev, n)
+            plies = {"run_greedy": (g_args, g_steps, 2, "steps"),
+                     "run_chases": (c_args, c_descents, 1, "descents")}
     args, g_dev, c_dev, n = lanes_b256
     timed = (
         ("ladder_prep", TA.ladder_prep, TA.ladder_prep_plain, args),
@@ -448,13 +477,30 @@ def main():
     )
     for name, fn, plain, a in timed:
         r = ladder_rec[name]
-        r["nbytes"] = tensor_bytes(torch, (a, fn(*a)))
-        r["ops"] = OPS_PER_CELL * a[0].numel()
+        if name in plies:
+            r["nbytes"], r["ops"] = lane_work(*plies[name][:3], n)
+        else:
+            r["nbytes"] = tensor_bytes(torch, (a, fn(*a)))
+            r["ops"] = OPS_PER_CELL * a[0].numel()
         r["ms"] = time_card(torch, fn, a)
         r["plain_ms"] = time_card(torch, plain, a, iters=1, warmup=0)
         rec[name] = r
         print(f"{name} B={PARITY_B} 19x19: kernel {r['ms']:.4f} ms, plain torch on "
               f"card {r['plain_ms']:.2f} ms, {r['cells']} outputs equal  [{card}]")
+    # a launch lasts as long as its longest lane: that lane alone, timed
+    searches = {name: (fn, a) for name, fn, _, a in timed if name in plies}
+    for name, (lanes, lane_plies, _, unit) in plies.items():
+        fn, a = searches[name]
+        alone_ms = time_card(torch, fn, tuple(t[[int(lane_plies.argmax())]] for t in a))
+        lane_plies = lane_plies[lanes[6] > 0]
+        longest, total = int(lane_plies.max()), int(lane_plies.sum())
+        ms = rec[name]["ms"]
+        q = torch.quantile(lane_plies.double(), torch.tensor([0.5, 0.9, 0.99]).double())
+        print(f"{name}: {lane_plies.numel()} lanes searched; {unit}: {total} in all, "
+              f"{longest} on the longest lane (median {q[0]:.0f}, p90 {q[1]:.0f}, "
+              f"p99 {q[2]:.0f}); kernel {ms / longest:.6f} ms a "
+              f"{unit[:-1]} of the longest lane, which alone takes {alone_ms:.4f} ms; "
+              f"bound {bound(rec[name]['nbytes'], rec[name]['ops'])[0]:.6f} ms  [{card}]")
     planes_ms = time_card(torch, TL.ladder_planes_batch, args, iters=5)
     print(f"ladder_planes_batch B={PARITY_B} 19x19 (prep, candidates, both "
           f"searches, planes): {planes_ms:.3f} ms on the card  [{card}]")

@@ -24,8 +24,8 @@ chained on the card; prints ONE JSON line, ``env_steps_per_s_19x19``.
 
     python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
 
-times the board kernels built from another csrc/ tree (an earlier
-commit's, unpacked with ``git archive``) against the package's,
+times the board and ladder kernels built from another csrc/ tree (an
+earlier commit's, unpacked with ``git archive``) against the package's,
 alternately in one process (see ``ab_kernels``); prints a line a case and
 one JSON line.
 
@@ -260,55 +260,64 @@ AB_ROUNDS, AB_INNER = 25, 10
 
 
 def ab_kernels(old_csrc, device="cuda"):
-    """Times the board kernels built from another source tree (`old_csrc`:
-    its analysis.cu, flood.cu and headers, e.g. an earlier commit's csrc/)
-    against the package's, in one process on one card. The old libraries
-    are built into a temporary directory. Both sides run through the
-    package's own wrappers, their library (``_lib`` of ops/analysis.py and
-    ops/flood.py) pointed at that side's build. Inputs: the 256 random
-    19x19 positions of chip_smoke.py phase 3 and the stress boards of
-    game/positions.py, at the main paths' board counts (the flood kernel,
-    unchanged since it was ported, reads the spread of two equal builds).
-    AB_INNER calls of a case are captured in one CUDA graph a side; each of
-    AB_ROUNDS rounds replays both graphs in alternating order, with CUDA
-    events around each replay. Returns per case the median ms a call of
-    each side, every round's reading, and whether the two sides' outputs
-    are equal."""
+    """Times the board and ladder kernels built from another source tree
+    (`old_csrc`: its analysis.cu, flood.cu, ladder.cu and headers, e.g. an
+    earlier commit's csrc/) against the package's, in one process on one
+    card. The old libraries are built into a temporary directory. Both
+    sides run through the package's own wrappers, their library (``_lib``
+    of ops/analysis.py, ops/flood.py and ops/ladder_kernel.py) pointed at
+    that side's build. Inputs: the 256 random 19x19 positions of
+    chip_smoke.py phase 3 and the stress boards of game/positions.py, at the
+    main paths' board counts (the flood kernel, unchanged since it was
+    ported, reads the spread of two equal builds); the ladder searches on
+    the lanes that ladder_planes_batch gives them on those positions
+    (greedy: every lane, chase: the forked ones). AB_INNER calls of a case
+    are captured in one CUDA graph a side; each of AB_ROUNDS rounds replays
+    both graphs in alternating order, with CUDA events around each replay.
+    Returns per case the median ms a call of each side, every round's
+    reading, and whether the two sides' outputs are equal."""
     import contextlib
     import statistics
     import tempfile
     from pathlib import Path
 
     from sayuri_tpu_torch.game import board as TB
+    from sayuri_tpu_torch.game import ladder as TL
     from sayuri_tpu_torch.game.positions import random_positions, stress_positions
     from sayuri_tpu_torch.ops import analysis as TA
     from sayuri_tpu_torch.ops import build
     from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
 
     dev = torch.device(device)
     tmp = Path(tempfile.mkdtemp(prefix="sayuri_ab_"))
-    libs = {"new": (TA._lib(), FK._lib())}
+    mods = (TA, FK, LK)
+    libs = {"new": tuple(m._lib() for m in mods)}
     old = []
-    for name, bind in (("analysis", TA.bind), ("flood", FK.bind)):
+    for name, mod in zip(("analysis", "flood", "ladder"), mods):
         build.compile_library(Path(old_csrc) / f"{name}.cu", tmp / f"lib{name}.so")
-        old.append(bind(ctypes.CDLL(str(tmp / f"lib{name}.so"))))
+        old.append(mod.bind(ctypes.CDLL(str(tmp / f"lib{name}.so"))))
     libs["old"] = tuple(old)
 
     @contextlib.contextmanager
     def side(k):
-        saved = TA._lib, FK._lib
-        TA._lib, FK._lib = (lambda: libs[k][0]), (lambda: libs[k][1])
+        saved = tuple(m._lib for m in mods)
+        for m, lib in zip(mods, libs[k]):
+            m._lib = lambda lib=lib: lib
         try:
             yield
         finally:
-            TA._lib, FK._lib = saved
+            for m, fn in zip(mods, saved):
+                m._lib = fn
 
     def tiled(ts, boards):
         return tuple(t.repeat((-(-boards // t.shape[0]),) + (1,) * (t.ndim - 1))
                      [:boards].to(dev).contiguous() for t in ts)
 
     def flat(out):
-        return list(out.values()) if isinstance(out, dict) else [out]
+        if isinstance(out, dict):
+            return list(out.values())
+        return list(out) if isinstance(out, tuple) else [out]
 
     s, a = random_positions(19, 256, seed=0, max_moves=260)
     rnd = (s.stones, s.size, s.ko, s.to_move, a)
@@ -320,6 +329,13 @@ def ab_kernels(old_csrc, device="cuda"):
     def flood_args(masks, boards):
         (m,) = tiled((masks,), boards)
         return m & TB.nbr_or(~m), m
+
+    n = s.stones.shape[-1]
+    lanes, ok = TL.chase_lanes(*(t.to(dev) for t in (s.stones, s.size, s.ko)))[2:]
+    ok = ok.to(torch.int32)
+    forked = LK.run_greedy(*lanes, ok, n)[1]
+    greedy_lanes = (*lanes, ok)
+    forked_lanes = (*lanes, ((forked > 0) & (ok > 0)).to(torch.int32))
 
     cases = {
         "step_and_analyze B=256": (TA.step_and_analyze, tiled(rnd, 256)),
@@ -334,6 +350,10 @@ def ab_kernels(old_csrc, device="cuda"):
         "flood 256 boards": (FK.flood, flood_args(black, 256)),
         "flood 512 boards": (FK.flood, flood_args(colours, 512)),
         "flood 92416 boards": (FK.flood, flood_args(colours, 92416)),
+        f"run_greedy {lanes[0].shape[0]} lanes": (
+            lambda *a: LK.run_greedy(*a, n), greedy_lanes),
+        f"run_chases {int(forked_lanes[6].sum())} forked lanes": (
+            lambda *a: LK.run_chases(*a, n), forked_lanes),
     }
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 

@@ -6,8 +6,8 @@
 //   ladder_prep_kernel    <- _ladder_prep_kernel   (entry ladder_prep_tpu)
 //   step_legal_kernel     <- _step_legal_kernel    (entry step_and_legal_tpu)
 // The first two share one __device__ routine, analyze_board(), as the
-// Pallas pair shares _analyze_board; the two step kernels share
-// play_and_hash().
+// Pallas pair shares _analyze_board. The light step kernel plays, labels
+// and counts liberties in one labelling of its own (see it below).
 //
 // What bounds them on this card: not bytes (a board is 361 bytes in and a
 // few KB out) but the latency of one board's serial chain of phases. At the
@@ -91,15 +91,15 @@ struct Smem {
   unsigned hw[2];
 };
 
-// The light step kernel's scratch: what play_and_hash() and one liberty
-// count per chain root need, 5.8 KB.
+// The light step kernel's scratch: one labelling of the played board and
+// one liberty count per chain root, 4.2 KB.
 struct SmemStep {
-  int8_t st[MAXNN];
+  int8_t st[MAXNN];          // the played board, then the child
   uint8_t msk[MAXNN];
-  uint8_t cls[MAXNN];        // captures, then child chains (stone colour)
-  int lbl_s[MAXNN];          // chain labels
-  int haslib[MAXNN];
-  int libcnt[MAXNN];
+  uint8_t cls[MAXNN];        // stone colour on the played board, else 0
+  uint8_t haslib[MAXNN];     // opponent chain root: has a liberty
+  int lbl[MAXNN];            // chains of both colours on the played board
+  int libcnt[MAXNN];         // surviving chain root: liberties in the child
   int capv, ncap;
   unsigned hw[2];
 };
@@ -493,8 +493,7 @@ __device__ void analyze_board(const Geo& g, Smem& s, int8_t v, bool m, int tm,
 // after the load; none at the end (s.cls, s.lbl_s and s.haslib are free
 // again, s.st and s.msk are read until the caller's next barrier).
 // ---------------------------------------------------------------------------
-template <class S>
-__device__ int play_and_hash(const Geo& g, S& s, const int8_t* __restrict__ stones,
+__device__ int play_and_hash(const Geo& g, Smem& s, const int8_t* __restrict__ stones,
                              int size, int tm, int v,
                              const int* __restrict__ zob, long b,
                              int8_t* new_stones, int* ncap_out, int* ko_out,
@@ -626,15 +625,23 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
 
 // ---------------------------------------------------------------------------
 // Light env step (the raw env-stepping path: env-steps bench, rollouts,
-// opening randomization): play and hash as above, then only the child's
-// legality for the side to move after the move. Legality needs each
-// chain's "has a liberty" and "has a second liberty"; here both come from
-// the exact liberty count per chain root (one labelling of both colours,
-// one shared-memory atomic pass), where the TPU kernel propagates a min and
-// a negated min over float labels. The child's labelling is still the
-// relaxation (label_by_class); its play half shares play_and_hash(). A
-// 5.8 KB shared struct: residency is set by the 384 threads a block, five
-// blocks per SM.
+// opening randomization): play the move, hash the child, and only the
+// child's legality for the side to move after the move. Legality needs
+// each chain's "has a liberty" and "has a second liberty"; here both come
+// from the exact liberty count per chain root, where the TPU kernel
+// propagates a min and a negated min over float labels.
+//
+// What bounds it on this card: one board's serial chain of phases, paid
+// once a wave; at the env-steps batch (B=4096) the launch runs about six
+// waves of 660 resident boards. The design: a capture removes whole chains
+// and never joins or splits another one, so ONE union-find labelling of
+// the played board (class = stone colour, both colours at once; the move's
+// stone already in place) gives both the opponent chains whose liberties
+// decide the captures and, minus the captured ones, the child's chains.
+// Four barriers whatever the board (load, hook, roots, captures and
+// liberties), where the relaxation it replaces took one a pass. A 4.2 KB
+// shared struct: residency is set by the 384 threads a block, five blocks
+// an SM.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(MAXNN)
 step_legal_kernel(const int8_t* __restrict__ stones,
@@ -650,54 +657,131 @@ step_legal_kernel(const int8_t* __restrict__ stones,
   const long b = blockIdx.x;
   const long off = b * g.nn;
   const int tm = to_move[b];
-  const int ko2 = play_and_hash(g, s, stones, size[b], tm, action[b], zob, b,
-                                new_stones, ncap_out, ko_out, hash_out);
+  const int v = action[b];
+  const int sz = size[b];
+  const bool is_pass = v >= g.nn || v < 0;
+  const int8_t own_c = (int8_t)(tm + 1), opp_c = (int8_t)(2 - tm);
+  const bool m = g.cell && g.y < sz && g.x < sz;
+  int8_t c0 = g.cell ? stones[off + t] : 0;
+  if (!is_pass && t == v && m) c0 = own_c;
+  const uint8_t c = m ? (uint8_t)c0 : 0;
 
-  // child chains of both colours (class = stone colour on the board)
-  const bool m = g.cell && s.msk[t];
-  const int8_t v = g.cell ? s.st[t] : 0;
-  const bool empty = m && v == 0;
-  volatile uint8_t* cls = s.cls;
-  volatile int* libcnt = s.libcnt;
+  // ---- 1: the played board; seeds of one labelling of both colours
   if (g.cell) {
-    cls[t] = m ? (uint8_t)v : 0;
-    libcnt[t] = 0;
+    s.st[t] = c0;
+    s.msk[t] = m;
+    s.cls[t] = c;
+    s.haslib[t] = 0;
+    s.libcnt[t] = 0;
+  }
+  uf_seed(g, c, s.lbl);
+  if (t == 0) {
+    s.capv = BIG;
+    s.ncap = 0;
+    s.hw[0] = 0;
+    s.hw[1] = 0;
   }
   __syncthreads();
-  label_by_class(g, cls, s.lbl_s);
-  volatile int* lbl = s.lbl_s;
-  // every empty cell is one liberty of each distinct adjacent chain
-  if (empty) {
-    int seen[4];
+  // ---- 2
+  uf_hook(g, s.cls, s.lbl);
+  __syncthreads();
+  // ---- 3: roots; an opponent chain with an empty neighbour has a liberty
+  const int root = uf_flatten(g, c != 0, s.lbl);
+  int8_t nc[4];   // neighbours on the played board, -1 off the board
+  bool lib = false;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int q = g.nb[d];
+    nc[d] = (q >= 0 && s.msk[q]) ? s.st[q] : -1;
+    lib |= nc[d] == 0;
+  }
+  const bool opp = c != 0 && c0 == opp_c;
+  if (opp && lib) s.haslib[root] = 1;
+  __syncthreads();
+  // ---- 4: captures, the child and its hash; every empty cell of the
+  // child is one liberty of each distinct adjacent chain that survives
+  const bool captured = !is_pass && opp && !s.haslib[root];
+  const int8_t c1 = captured ? 0 : c0;
+  if (captured) {
+    atomicAdd(&s.ncap, 1);
+    atomicMin(&s.capv, t);
+    s.st[t] = 0;
+  }
+  int nr[4];      // root of the surviving neighbour chain, else -1
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    int r = -1;
+    if (nc[d] > 0) {
+      r = s.lbl[g.nb[d]];
+      if (!is_pass && nc[d] == opp_c && !s.haslib[r]) r = -1;
+    }
+    nr[d] = r;
+  }
+  if (m && c1 == 0) {
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      int q = g.nb[d];
-      int l = (q >= 0 && cls[q]) ? lbl[q] : -1;
-      for (int e = 0; e < d; ++e)
-        if (seen[e] == l) l = -1;
-      seen[d] = l;
-      if (l >= 0) atomicAdd((int*)&libcnt[l], 1);
+      bool dup = nr[d] < 0;
+      for (int e = 0; e < d; ++e) dup |= nr[e] == nr[d];
+      if (!dup) atomicAdd(&s.libcnt[nr[d]], 1);
     }
   }
+  unsigned w0 = 0, w1 = 0;
+  if (c1 != 0) {
+    const int k = 2 * (c1 - 1);
+    w0 = (unsigned)zob[k * g.nn + t];
+    w1 = (unsigned)zob[(k + 1) * g.nn + t];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    w0 ^= __shfl_xor_sync(0xffffffffu, w0, o);
+    w1 ^= __shfl_xor_sync(0xffffffffu, w1, o);
+  }
+  if ((t & 31) == 0) {
+    atomicXor(&s.hw[0], w0);
+    atomicXor(&s.hw[1], w1);
+  }
+  if (g.cell) new_stones[off + t] = c1;
   __syncthreads();
-  // legal for the side to move in the child (1 - tm): empty, not ko, and an
-  // empty neighbour, an own chain with >= 2 liberties or an opponent chain
-  // in atari next to it
-  const uint8_t own_c = (uint8_t)(2 - tm), opp_c = (uint8_t)(tm + 1);
+  // ---- 5: simple ko (one stone captured by a stone with no own neighbour
+  // and a single liberty; every thread reads the move's neighbours itself),
+  // then legality for the side to move in the child (1 - tm): empty, not
+  // ko, and an empty neighbour, an own chain with >= 2 liberties or an
+  // opponent chain in atari next to it
+  int ko2 = -1;
+  const int n_cap = s.ncap;
+  if (!is_pass && n_cap == 1) {
+    const int vy = v / g.n, vx = v % g.n;
+    int own_nb = 0, lib_nb = 0;
+    const int nbv[4] = {vy > 0 ? v - g.n : -1, vy < g.n - 1 ? v + g.n : -1,
+                        vx > 0 ? v - 1 : -1, vx < g.n - 1 ? v + 1 : -1};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int q = nbv[d];
+      if (q < 0 || !s.msk[q]) continue;
+      own_nb += s.st[q] == own_c;
+      lib_nb += s.st[q] == 0;
+    }
+    if (own_nb == 0 && lib_nb == 1) ko2 = s.capv;
+  }
   bool ok = false;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
-    int q = g.nb[d];
-    if (q < 0 || !s.msk[q]) continue;
-    uint8_t c = cls[q];
-    if (c == 0) ok = true;
-    else {
-      int lq = libcnt[lbl[q]];
-      if (c == own_c && lq >= 2) ok = true;
-      if (c == opp_c && lq == 1) ok = true;
+    if (nc[d] < 0) continue;
+    if (nr[d] < 0) {
+      ok = true;   // empty in the child (empty before, or captured)
+    } else {
+      const int lq = s.libcnt[nr[d]];
+      if (nc[d] == opp_c && lq >= 2) ok = true;   // own chain of 1 - tm
+      if (nc[d] == own_c && lq == 1) ok = true;   // the mover's, in atari
     }
   }
-  if (g.cell) legal[off + t] = empty && t != ko2 && ok;
+  if (g.cell) legal[off + t] = m && c1 == 0 && t != ko2 && ok;
+  if (t == 0) {
+    ncap_out[b] = n_cap;
+    ko_out[b] = ko2;
+    hash_out[2 * b] = (int)s.hw[0];
+    hash_out[2 * b + 1] = (int)s.hw[1];
+  }
 }
 
 // ---------------------------------------------------------------------------

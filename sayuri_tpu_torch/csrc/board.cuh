@@ -12,8 +12,7 @@
 // barriers whatever the board; the relaxation (label_by_class) takes one
 // barrier a pass and as many passes as the board needs (a long snake chain
 // costs tens). The relaxation stays for the kernels not yet redesigned
-// (flood_kernel, ladder_prep_kernel, the child labelling of
-// step_legal_kernel).
+// (flood_kernel, ladder_prep_kernel).
 
 #pragma once
 

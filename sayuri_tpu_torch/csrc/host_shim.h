@@ -1,7 +1,8 @@
 // CPU stand-in for the CUDA device runtime, so that the board kernels
-// (csrc/flood.cu, csrc/analysis.cu) compile with g++ and run on the host:
-// the CPU tests hold them against their plain PyTorch versions, and the
-// barriers each block passes are counted. nvcc never includes this file
+// (csrc/flood.cu, csrc/analysis.cu) and the ladder kernels (csrc/ladder.cu)
+// compile with g++ and run on the host: the CPU tests hold them against
+// their plain PyTorch versions, and the barriers each block passes and the
+// warp-wide operations each warp runs are counted. nvcc never includes this file
 // (ops/build.py only tracks csrc/*.cuh).
 //
 // Model:
@@ -9,9 +10,13 @@
 //     block is a fiber on the calling OS thread (ucontext starts it,
 //     _setjmp/_longjmp switch between fibers).
 //   - A fiber runs until it reaches a block barrier (__syncthreads*) or a
-//     warp-wide operation (shuffle, ballot, __syncwarp), and waits there
+//     warp-wide operation (shuffle, vote, reduction, __syncwarp), and waits
+//     there
 //     until every live thread of its block (its warp) has arrived. A thread
-//     that has returned counts as arrived.
+//     that has returned counts as arrived. Each release of a warp counts
+//     as one warp-wide operation of that warp: in a kernel that gives a
+//     warp a serial chain of them (a ladder lane), their count stands for
+//     its latency, as the barriers a board do for a board kernel.
 //   - __shared__ variables are function statics: one copy, shared by the
 //     fibers of the running block.
 //   - Atomics are plain read-modify-writes, since one fiber runs at a time.
@@ -22,7 +27,7 @@
 // Use (ops/host_shim.py does all of it): compile a .cu source cut before
 // its extern "C" launchers (they use <<<>>>), with an include directory
 // whose cuda_runtime.h includes this file, and run kernels through
-// shim::launch(grid, block, body, barriers_out, seed).
+// shim::launch(grid, block, body, barriers_out, seed, warp_ops_out).
 
 #pragma once
 
@@ -49,7 +54,8 @@ namespace shim {
 
 enum State { RUN, DONE, BLOCK_OP, WARP_OP };
 enum BlockRed { SYNC, OR, AND, COUNT };
-enum WarpKind { SHFL_XOR, SHFL_IDX, SHFL_UP, BALLOT, WSYNC };
+enum WarpKind { SHFL_XOR, SHFL_IDX, SHFL_UP, SHFL_DOWN, BALLOT, WSYNC,
+                RED_ADD, RED_MIN, RED_MAX, RED_OR };
 
 struct Fiber {
   ucontext_t uc;
@@ -125,8 +131,30 @@ inline long long wait(int state, int kind, long long val, int arg) {
   return f.result;
 }
 
-// Releases the warps whose live lanes all wait at a warp operation.
-inline bool release_warps(int n) {
+inline bool is_shuffle(int kind) {
+  return kind == SHFL_XOR || kind == SHFL_IDX || kind == SHFL_UP || kind == SHFL_DOWN;
+}
+
+// The reduction `kind` of the values of the lanes w0..w1 waiting at it.
+inline long long reduce(int kind, int w0, int w1) {
+  long long r = 0;
+  bool first = true;
+  for (int i = w0; i < w1; ++i) {
+    const Fiber& f = g.fib[i];
+    if (f.state != WARP_OP) continue;
+    const long long v = f.val;
+    if (kind == RED_ADD) r += v;
+    if (kind == RED_OR) r |= v;
+    if (kind == RED_MIN) r = first || v < r ? v : r;
+    if (kind == RED_MAX) r = first || v > r ? v : r;
+    first = false;
+  }
+  return r;
+}
+
+// Releases the warps whose live lanes all wait at a warp operation;
+// warp_ops[w] counts the releases of warp w (when it is not null).
+inline bool release_warps(int n, long long* warp_ops) {
   bool any = false;
   for (int w0 = 0; w0 < n; w0 += 32) {
     int w1 = w0 + 32 < n ? w0 + 32 : n;
@@ -145,6 +173,7 @@ inline bool release_warps(int n) {
     unsigned long long ballot = 0;
     for (int i = w0; i < w1; ++i)
       if (g.fib[i].state == WARP_OP && g.fib[i].val) ballot |= 1ull << (i - w0);
+    const long long red = kind >= RED_ADD ? reduce(kind, w0, w1) : 0;
     for (int i = w0; i < w1; ++i) {
       Fiber& f = g.fib[i];
       if (f.state != WARP_OP) continue;
@@ -152,13 +181,15 @@ inline bool release_warps(int n) {
       if (kind == SHFL_XOR) src = w0 + (((i - w0) ^ f.arg) & 31);
       if (kind == SHFL_IDX) src = w0 + (f.arg & 31);
       if (kind == SHFL_UP && i - w0 >= f.arg) src = i - f.arg;
-      if ((kind == SHFL_XOR || kind == SHFL_IDX || kind == SHFL_UP) &&
-          (src >= w1 || g.fib[src].state != WARP_OP))
+      if (kind == SHFL_DOWN && i - w0 + f.arg < 32) src = i + f.arg;
+      if (is_shuffle(kind) && (src >= w1 || g.fib[src].state != WARP_OP))
         fail("shuffle from a lane that is not there");
-      f.result = kind == BALLOT ? (long long)ballot : g.fib[src].val;
+      f.result = kind == BALLOT ? (long long)ballot
+                 : kind >= RED_ADD ? red : g.fib[src].val;
     }
     for (int i = w0; i < w1; ++i)
       if (g.fib[i].state == WARP_OP) g.fib[i].state = RUN;
+    if (warp_ops) ++warp_ops[w0 / 32];
     any = true;
   }
   return any;
@@ -195,10 +226,13 @@ inline bool release_block(int n, long long& barriers) {
 }
 
 // Runs `body` as `grid` blocks of `block` threads; barriers[b] = block
-// barriers passed by block b (when barriers is not null). A non-zero
-// `seed` draws the order of fibers and their yields at atomics.
+// barriers passed by block b (when barriers is not null), warp_ops[b * W +
+// w] = warp-wide operations of warp w of block b, W warps a block (when
+// warp_ops is not null). A non-zero `seed` draws the order of fibers and
+// their yields at atomics.
 inline void launch(long long grid, int block, std::function<void()> body,
-                   long long* barriers, unsigned long long seed) {
+                   long long* barriers, unsigned long long seed,
+                   long long* warp_ops = nullptr) {
   g.body = std::move(body);
   g.fib.assign(block, Fiber{});
   while ((int)g.stacks.size() < block) g.stacks.push_back((char*)std::malloc(STACK_BYTES));
@@ -219,6 +253,9 @@ inline void launch(long long grid, int block, std::function<void()> body,
       makecontext(&f.uc, fiber_main, 0);
     }
     long long nbar = 0;
+    long long* ops = warp_ops ? warp_ops + b * ((block + 31) / 32) : nullptr;
+    if (ops)
+      for (int w = 0; w < (block + 31) / 32; ++w) ops[w] = 0;
     for (;;) {
       runnable.clear();
       for (int i = 0; i < block; ++i)
@@ -236,7 +273,7 @@ inline void launch(long long grid, int block, std::function<void()> body,
       } else {
         for (int i : runnable) resume(i);
       }
-      if (release_warps(block)) continue;
+      if (release_warps(block, ops)) continue;
       if (release_block(block, nbar)) continue;
       bool done = true;
       for (int i = 0; i < block; ++i) done = done && g.fib[i].state == DONE;
@@ -270,6 +307,10 @@ inline T __shfl_up_sync(unsigned, T v, unsigned delta, int = 32) {
   return (T)shim::wait(shim::WARP_OP, shim::SHFL_UP, (long long)v, (int)delta);
 }
 template <class T>
+inline T __shfl_down_sync(unsigned, T v, unsigned delta, int = 32) {
+  return (T)shim::wait(shim::WARP_OP, shim::SHFL_DOWN, (long long)v, (int)delta);
+}
+template <class T>
 inline T __shfl_sync(unsigned, T v, int src, int = 32) {
   return (T)shim::wait(shim::WARP_OP, shim::SHFL_IDX, (long long)v, src);
 }
@@ -277,8 +318,22 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return (unsigned)shim::wait(shim::WARP_OP, shim::BALLOT, p != 0, 0);
 }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
-inline int __all_sync(unsigned m, int p) {
-  return __ballot_sync(m, p) == __ballot_sync(m, 1);
+// the ballot holds only the live lanes: all of them hold p when none fails
+inline int __all_sync(unsigned m, int p) { return __ballot_sync(m, !p) == 0; }
+template <class T>
+inline T __reduce_add_sync(unsigned, T v) {
+  return (T)shim::wait(shim::WARP_OP, shim::RED_ADD, (long long)v, 0);
+}
+template <class T>
+inline T __reduce_min_sync(unsigned, T v) {
+  return (T)shim::wait(shim::WARP_OP, shim::RED_MIN, (long long)v, 0);
+}
+template <class T>
+inline T __reduce_max_sync(unsigned, T v) {
+  return (T)shim::wait(shim::WARP_OP, shim::RED_MAX, (long long)v, 0);
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return (unsigned)shim::wait(shim::WARP_OP, shim::RED_OR, (long long)v, 0);
 }
 
 template <class T, class U>
@@ -348,3 +403,11 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}

@@ -81,15 +81,13 @@ def _prep_candidates(stones, size, ko, M=None):
     return dict(_extract_candidates(prep, stones, M), labels=prep["labels"])
 
 
-def ladder_planes_batch(stones, size, ko=None):
-    """[B, n, n, 4] float32 ladder planes [death, escapable, atari, take]
-    of a batch: [B, n, n] int8 stones, [B] int32 size and ko (None: no
-    ko)."""
+def chase_lanes(stones, size, ko):
+    """Steps 1-2 on a batch: (prep maps, candidate dict, lane inputs, ok).
+    The lane inputs are [L, ROWS] int32 own (prey colour) and opp words and
+    [L] int32 size, ko, prey vertex and first hunter move, L = B *
+    max_chains(n) * 2 (both lanes of a candidate alike); ok [L] bool marks
+    the lanes to search."""
     b, n = stones.shape[0], stones.shape[-1]
-    nn = n * n
-    dev = stones.device
-    if ko is None:
-        ko = torch.full((b,), NO_VERTEX, dtype=torch.int32, device=dev)
     M = max_chains(n)
     prep = ladder_prep(stones, size, ko)
     c = _extract_candidates(prep, stones, M)
@@ -120,14 +118,32 @@ def ladder_planes_batch(stones, size, ko=None):
         torch.stack([fh0, l2], 2).reshape(-1).to(i32),
     )
     ok = torch.stack([ok0, ok1], 2).reshape(-1)
+    return prep, c, args, ok
+
+
+def ladder_planes_batch(stones, size, ko=None):
+    """[B, n, n, 4] float32 ladder planes [death, escapable, atari, take]
+    of a batch: [B, n, n] int8 stones, [B] int32 size and ko (None: no
+    ko)."""
+    b, n = stones.shape[0], stones.shape[-1]
+    nn = n * n
+    dev = stones.device
+    if ko is None:
+        ko = torch.full((b,), NO_VERTEX, dtype=torch.int32, device=dev)
+    M = max_chains(n)
+    prep, c, args, ok = chase_lanes(stones, size, ko)
+    cand_v, nlibs, l1, l2 = c["cand_v"], c["nlibs"], c["l1"], c["l2"]
+    valid = cand_v >= 0
+    i32 = torch.int32
     res_g, forked = LK.run_greedy(*args, ok.to(i32), n)
     fv = (forked > 0) & ok
     res_d = LK.run_chases(*args, fv.to(i32), n)
     res = torch.where(fv, res_d, res_g).reshape(b, M, 2)
 
     died = (nlibs == 1) & valid & (res[..., 0] == HUNTER_GOOD)
-    vital_a = (nlibs == 2) & ok0 & (res[..., 0] == HUNTER_GOOD)
-    vital_b = (nlibs == 2) & ok1 & (res[..., 1] == HUNTER_GOOD)
+    ok_ab = ok.reshape(b, M, 2)
+    vital_a = (nlibs == 2) & ok_ab[..., 0] & (res[..., 0] == HUNTER_GOOD)
+    vital_b = (nlibs == 2) & ok_ab[..., 1] & (res[..., 1] == HUNTER_GOOD)
 
     chain_of = (prep["labels"][:, None, :] == cand_v[..., None]) & valid[..., None]
     cells = torch.arange(nn, device=dev)

@@ -1,19 +1,26 @@
-"""Run the board kernels of csrc/flood.cu and csrc/analysis.cu on the CPU.
+"""Run the kernels of csrc/flood.cu, csrc/analysis.cu and csrc/ladder.cu on
+the CPU.
 
 g++ compiles each source, cut before its ``extern "C"`` launchers, against
 csrc/host_shim.h (each CUDA thread a fiber, shared memory static, barriers,
 warp operations and atomics emulated; see that file), with small C entry
-points per source that run a kernel over a batch of boards. The wrappers below
-take and return CPU tensors in the form of the CUDA wrappers of
-ops/flood.py and ops/analysis.py, plus the number of block barriers each
-board passed.
+points per source that run a kernel over a batch of boards or lanes. The
+wrappers below take and return CPU tensors in the form of the CUDA wrappers
+of ops/flood.py, ops/analysis.py and ops/ladder_kernel.py, plus the number
+of block barriers each board passed (board kernels) or of warp-wide
+operations each lane ran (ladder kernels: a lane is one warp, and the count
+stands for its serial latency).
 
     python -m sayuri_tpu_torch.ops.host_shim [CSRC_DIR ...]
 
 prints, for the kernels of each source directory (default: the package's
 csrc/), the barriers a board over the 256 random 19x19 positions of
 chip_smoke.py phase 3 (median and maximum) and over the stress boards of
-game/positions.py, as one JSON line.
+game/positions.py, and the warp-wide operations of the chase and greedy
+kernels on the lanes that ladder_planes_batch gives them on those
+positions (the chase: the forked ones): a ply on average and on the
+LONGEST_LANES longest lanes (by the plain twins' plies), as one JSON line.
+The plain twins take about a minute on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ from pathlib import Path
 
 import torch
 
+from sayuri_tpu_torch.ops import ladder_kernel as LK
 from sayuri_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
+
+LONGEST_LANES = 8
 
 SHIM_HEADER = CSRC_DIR / "host_shim.h"
 
@@ -85,6 +95,29 @@ extern "C" void shim_step_legal(const void* stones, const void* size,
   }}, barriers, schedule);
 }}
 """,
+    "ladder": f"""
+extern "C" int shim_lanes_a_block() {{ return WARPS; }}
+extern "C" void shim_greedy(const void* own, const void* opp, const void* size,
+    const void* ko, const void* prey_v, const void* first_v, const void* valid,
+    void* result, void* forked, int L, int n, int node_cap, {_TAIL},
+    long long* warp_ops) {{
+  shim::launch(lane_blocks(L), WARPS * 32, [=] {{
+    greedy_kernel((const int*)own, (const int*)opp, (const int*)size,
+        (const int*)ko, (const int*)prey_v, (const int*)first_v,
+        (const int*)valid, (int*)result, (int*)forked, L, n, node_cap);
+  }}, barriers, schedule, warp_ops);
+}}
+extern "C" void shim_chases(const void* own, const void* opp, const void* size,
+    const void* ko, const void* prey_v, const void* first_v, const void* valid,
+    void* result, int L, int n, int node_cap, int max_forks, {_TAIL},
+    long long* warp_ops) {{
+  shim::launch(lane_blocks(L), WARPS * 32, [=] {{
+    chase_kernel((const int*)own, (const int*)opp, (const int*)size,
+        (const int*)ko, (const int*)prey_v, (const int*)first_v,
+        (const int*)valid, (int*)result, L, n, node_cap, max_forks);
+  }}, barriers, schedule, warp_ops);
+}}
+""",
 }
 
 
@@ -101,9 +134,9 @@ def _cut(src: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def build(csrc: str | Path = CSRC_DIR) -> ctypes.CDLL:
-    """Compile flood.cu and analysis.cu of `csrc` against the shim into one
-    shared library (cached under _build/ by the hash of its inputs) and
-    load it."""
+    """Compile flood.cu, analysis.cu and ladder.cu of `csrc` against the
+    shim into one shared library (cached under _build/ by the hash of its
+    inputs) and load it."""
     csrc = Path(csrc).resolve()
     cxx = find_cxx()
     if cxx is None:
@@ -236,6 +269,51 @@ def step_and_legal(lib, stones, size, ko, to_move, action, schedule=0):
     return {**step, "legal": legal}, bar
 
 
+def _ladder_run(fn, lib, lanes, n, *tail, outputs, schedule):
+    """Runs a ladder entry point over the seven lane inputs; returns its
+    int32 outputs and the warp-wide operations of each lane."""
+    L = lanes[0].shape[0]
+    outs = [torch.empty(L, dtype=torch.int32) for _ in range(outputs)]
+    blocks = -(-L // lib.shim_lanes_a_block())
+    ops = torch.zeros(blocks * lib.shim_lanes_a_block(), dtype=torch.int64)
+    barriers = torch.zeros(blocks, dtype=torch.int64)
+    fn(*_inputs(*lanes), *(_p(t) for t in outs), ctypes.c_int(L), ctypes.c_int(n),
+       *(ctypes.c_int(x) for x in tail), _p(barriers), ctypes.c_ulonglong(schedule),
+       _p(ops))
+    return outs, ops[:L]
+
+
+def run_greedy(lib, lanes, n, node_cap=LK.NODE_CAP, schedule=0):
+    """greedy_kernel on the seven lane inputs of ops.ladder_kernel.run_greedy
+    -> (result, forked, warp-wide operations of each lane)."""
+    (result, forked), ops = _ladder_run(lib.shim_greedy, lib, lanes, n, node_cap,
+                                        outputs=2, schedule=schedule)
+    return result, forked, ops
+
+
+def run_chases(lib, lanes, n, node_cap=LK.NODE_CAP, max_forks=LK.MAX_FORKS,
+               schedule=0):
+    """chase_kernel on the seven lane inputs of ops.ladder_kernel.run_chases
+    -> (result, warp-wide operations of each lane)."""
+    (result,), ops = _ladder_run(lib.shim_chases, lib, lanes, n, node_cap, max_forks,
+                                 outputs=1, schedule=schedule)
+    return result, ops
+
+
+def search_lanes(stones, size, ko):
+    """The lanes that ladder_planes_batch hands the two search kernels on a
+    batch of CPU positions, through the plain twins: (greedy lanes, chase
+    lanes), seven tensors each (the chase's `valid` marks the forked
+    lanes)."""
+    from sayuri_tpu_torch.game.ladder import chase_lanes
+
+    n = stones.shape[-1]
+    args, ok = chase_lanes(stones, size, ko)[2:]
+    ok = ok.to(torch.int32)
+    _, forked = LK.run_greedy_plain(*args, ok, n)
+    return (*args, ok), (*args, ((forked > 0) & (ok > 0)).to(torch.int32))
+
+
 def colour_masks(stones, size):
     """[3, B, n, n] bool: the empty, black and white cells on the board."""
     from sayuri_tpu_torch.game import board as B
@@ -269,6 +347,16 @@ def _summary(counts):
             for k, v in counts.items()}
 
 
+def lane_report(ops, plies):
+    """A ladder kernel's warp-wide operations over the searched lanes (`ops`
+    and the plain twin's `plies` of each lane, 0 where a lane is not
+    searched): their mean a ply, and [ops, plies] of the LONGEST_LANES
+    lanes with the most plies."""
+    top = torch.argsort(plies, descending=True, stable=True)[:LONGEST_LANES]
+    return {"warp ops a ply": round(ops.sum().item() / plies.sum().item(), 1),
+            "longest lanes [warp ops, plies]": torch.stack([ops[top], plies[top]], 1).tolist()}
+
+
 def main(argv):
     from sayuri_tpu_torch.game.positions import random_positions, stress_positions
 
@@ -276,12 +364,20 @@ def main(argv):
     s, a = random_positions(19, 256, seed=0, max_moves=260)
     random_args = (s.stones, s.size, s.ko, s.to_move, a)
     stress_args = stress_positions(19)[:5]
+    g_lanes, c_lanes = search_lanes(s.stones, s.size, s.ko)
+    n = s.stones.shape[-1]
+    g_steps = LK.greedy_steps_plain(*g_lanes, n)[2]
+    c_descents = LK.chase_descents_plain(*c_lanes, n)[1]
     report = {}
     for d in dirs:
         lib = build(d)
         report[d] = {
             "phase-3 positions (256 random 19x19)": _summary(barrier_counts(lib, random_args)),
             "stress boards 19x19": _summary(barrier_counts(lib, stress_args)),
+            "run_chases on its forked lanes (plies: descents)":
+                lane_report(run_chases(lib, c_lanes, n)[1], c_descents),
+            "run_greedy on its valid lanes (plies: steps)":
+                lane_report(run_greedy(lib, g_lanes, n)[2], g_steps),
         }
     print(json.dumps(report))
 

@@ -312,14 +312,16 @@ def _lane_setup(own_words, opp_words, size, ko, prey_v, first_hunter_v, valid):
         prey_v[idx].to(torch.int64), first_hunter_v[idx].to(torch.int64)
 
 
-def run_greedy_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
-                     valid, n, node_cap=NODE_CAP):
-    """Plain version of the greedy pass (sayuri_tpu/ops/ladder_kernel.py
-    _greedy_machine). Returns (result [L] int32, forked [L] int32)."""
+def greedy_steps_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
+                       valid, n, node_cap=NODE_CAP):
+    """run_greedy_plain plus each lane's plies: (result [L] int32, forked
+    [L] int32, steps [L] int64, the plies the lane ran, 0 where it is not
+    valid)."""
     L = own_words.shape[0]
     dev = own_words.device
     result = torch.full((L,), PREY_GOOD, dtype=torch.int32, device=dev)
     forked = torch.zeros((L,), dtype=torch.int32, device=dev)
+    steps = torch.zeros((L,), dtype=torch.int64, device=dev)
     idx, colmask, full, own, opp, ko_, pv, pend_v = _lane_setup(
         own_words, opp_words, size, ko, prey_v, first_hunter_v, valid)
     prey = _flood_conv(_vertex_bit(pv, n), own, colmask)
@@ -338,6 +340,7 @@ def run_greedy_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
         res = torch.where(freeze, PREY_GOOD, sel["term"]).to(torch.int32)
         result[idx[done]] = res[done]
         forked[idx[done]] = fk[done].to(torch.int32)
+        steps[idx[done]] = nodes[done]
         keep = ~done
         idx, colmask, full, nodes, fk = (x[keep] for x in (idx, colmask, full, nodes, fk))
         own, opp, prey = (sel[k][keep] for k in ("own1", "opp1", "prey1"))
@@ -345,7 +348,16 @@ def run_greedy_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
         pend_prey = sel["selector_prey"][keep]
     # lanes still undecided at the cap read PREY_GOOD
     forked[idx] = fk.to(torch.int32)
-    return result, forked
+    steps[idx] = nodes
+    return result, forked, steps
+
+
+def run_greedy_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
+                     valid, n, node_cap=NODE_CAP):
+    """Plain version of the greedy pass (sayuri_tpu/ops/ladder_kernel.py
+    _greedy_machine). Returns (result [L] int32, forked [L] int32)."""
+    return greedy_steps_plain(own_words, opp_words, size, ko, prey_v,
+                              first_hunter_v, valid, n, node_cap)[:2]
 
 
 def run_chases_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
@@ -356,14 +368,24 @@ def run_chases_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
     select, push a frame at a multi-selection point) or RETURNs one frame
     (propagate the subtree result, resume the next alternative or pop).
     Returns result [L] int32; lanes not valid read PREY_GOOD."""
+    return chase_descents_plain(own_words, opp_words, size, ko, prey_v,
+                                first_hunter_v, valid, n, node_cap, max_forks)[0]
+
+
+def chase_descents_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
+                         valid, n, node_cap=NODE_CAP, max_forks=MAX_FORKS):
+    """run_chases_plain plus each lane's descents: (result [L] int32,
+    descents [L] int64, the plies the lane applied, 0 where it is not
+    valid)."""
     L = own_words.shape[0]
     dev = own_words.device
     out = torch.full((L,), PREY_GOOD, dtype=torch.int32, device=dev)
+    descents = torch.zeros((L,), dtype=torch.int64, device=dev)
     idx, colmask, full, own, opp, ko_, pv, pend_v = _lane_setup(
         own_words, opp_words, size, ko, prey_v, first_hunter_v, valid)
     V = idx.numel()
     if V == 0:
-        return out
+        return out, descents
     F = max_forks
     F1 = max(F, 1)          # stack arrays need one frame even when F is 0
     prey_bit = _vertex_bit(pv, n)
@@ -436,7 +458,8 @@ def run_chases_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
             result[r] = torch.where(empty, ret[r], result[r])
     result = torch.where(result == UNDECIDED, PREY_GOOD, result)
     out[idx] = result.to(torch.int32)
-    return out
+    descents[idx] = nodes
+    return out, descents
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +470,12 @@ def run_chases_plain(own_words, opp_words, size, ko, prey_v, first_hunter_v,
 def _lib():
     from sayuri_tpu_torch.ops import build
 
-    lib = build.load("ladder")
+    return bind(build.load("ladder"))
+
+
+def bind(lib):
+    """Set the argument and result types of ladder.cu's launchers on a
+    loaded library; returns it."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_greedy.argtypes = [vp] * 7 + [vp, vp] + [i, i, i, vp]
     lib.launch_greedy.restype = i

@@ -1,11 +1,16 @@
-"""The CUDA board kernels themselves, run on the CPU through the g++ shim
+"""The CUDA kernels themselves, run on the CPU through the g++ shim
 (csrc/host_shim.h, ops/host_shim.py), against their plain versions cell
-for cell: labels_kernel, flood_kernel, step_analysis_kernel,
-board_analysis_kernel and step_legal_kernel, at 9x9 and 19x19, on seeded
-random positions and on the stress boards of game/positions.py (a snake
-chain, one-stone chains, full and empty boards, smaller games in the
-buffer). The stress masks' labels are also held against the JAX
-package's chain_labels. Skips when there is no C++ compiler.
+for cell and lane for lane: labels_kernel, flood_kernel,
+step_analysis_kernel, board_analysis_kernel and step_legal_kernel, at 9x9
+and 19x19, on seeded random positions and on the stress boards of
+game/positions.py (a snake chain, one-stone chains, full and empty boards,
+smaller games in the buffer) plus hand-set moves for the light step
+(a whole-spiral capture, a suicide, a pass, a joining move, a ko
+capture); greedy_kernel and chase_kernel on the lanes that
+ladder_planes_batch builds on random 9x9 and 19x19 positions, also with
+limits small enough to bind. The stress masks' labels are also held
+against the JAX package's chain_labels. Skips when there is no C++
+compiler.
 """
 
 import statistics
@@ -20,6 +25,7 @@ from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.game.positions import random_positions, spiral, stress_positions
 from sayuri_tpu_torch.ops import analysis as TA
 from sayuri_tpu_torch.ops import host_shim as H
+from sayuri_tpu_torch.ops import ladder_kernel as LK
 
 
 @pytest.fixture(scope="module")
@@ -83,10 +89,115 @@ def test_board_analysis_kernel(lib, n, kind):
 @pytest.mark.parametrize("n", [9, 19])
 @pytest.mark.parametrize("kind", KINDS)
 def test_step_legal_kernel(lib, n, kind):
+    """One labelling of the played board: the same barriers on every
+    board."""
     args = _positions(n, kind)
     got, bar = H.step_and_legal(lib, *args)
     _assert_equal(got, TA.step_and_legal_plain(*args), "step_legal_kernel")
     _report(f"step_legal_kernel {n}x{n} {kind}", bar)
+    assert bar.unique().numel() == 1
+
+
+def _board(rows):
+    """[n, n] int8 stones from strings of '.', 'X' (black), 'O' (white)."""
+    return torch.tensor([[".XO".index(ch) for ch in r] for r in rows], dtype=torch.int8)
+
+
+def _special_moves():
+    """(stones, size, ko, to_move, action) of hand-set 9x9 moves, black to
+    move: the capture of a whole spiral, a suicide into a white eye, a
+    pass, a move that joins two chains, a ko capture."""
+    stones, size, ko, to_move, action, names = stress_positions(9)
+    spiral = names.index("double spiral, black to move")
+    eye = ["........."] * 3 + ["....O...."] + ["...O.O..."] + ["....O...."] + ["........."] * 3
+    join = ["........."] * 4 + ["...X.X..."] + ["........."] * 4
+    ko_shape = ["........."] * 3 + ["...XO...."] + ["..XO.O..."] + ["...XO...."] + ["........."] * 3
+    boards = [stones[spiral], _board(eye), _board(join), _board(join), _board(ko_shape)]
+    acts = [int(action[spiral]), 4 * 9 + 4, 81, 4 * 9 + 4, 4 * 9 + 4]
+    b = len(boards)
+    z = torch.zeros(b, dtype=torch.int32)
+    return (torch.stack(boards), z + 9, z - 1, z, torch.tensor(acts, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("schedule", [0, 1, 2, 3])
+def test_step_legal_kernel_special_moves(lib, schedule):
+    """The hand-set moves, in order and under random interleavings: every
+    output equal to the plain version, the same barriers on every board,
+    and each move does what it is set up for."""
+    args = _special_moves()
+    want = TA.step_and_legal_plain(*args)
+    got, bar = H.step_and_legal(lib, *args, schedule=schedule)
+    _assert_equal(got, want, f"special moves, schedule {schedule}")
+    assert bar.unique().numel() == 1
+    ncap, ko = want["n_captured"].tolist(), want["new_ko"].tolist()
+    assert ncap[0] > 9 * 9 // 3                      # the whole spiral
+    assert ncap[1] == 0 and int(want["new_stones"][1, 4, 4]) == 1   # suicide stays
+    assert torch.equal(want["new_stones"][2], args[0][2])           # pass
+    assert int(want["new_stones"][3, 4, 3:6].sum()) == 3            # joined
+    assert ncap[4] == 1 and ko[4] == 4 * 9 + 3                      # ko
+    assert not bool(want["legal"][4, ko[4]])
+
+
+_LANES = {}
+MAX_DESCENTS = 60   # lanes the shim runs in the chase test: short ones
+
+
+def _pick(lanes, rows):
+    return tuple(t[rows].contiguous() for t in lanes)
+
+
+def _ladder_lanes(n):
+    """The lanes ladder_planes_batch gives the searches on random n x n
+    positions, made once per module: (greedy lanes: the valid ones;
+    chase lanes: the forked ones of at most MAX_DESCENTS descents)."""
+    if n not in _LANES:
+        b, moves = (16, 64) if n == 9 else (8, 200)
+        s, _ = random_positions(n, b, seed=n, max_moves=moves)
+        g, c = H.search_lanes(s.stones, s.size, s.ko)
+        g = _pick(g, (g[6] > 0).nonzero().flatten())
+        descents = LK.chase_descents_plain(*c, n)[1]
+        c = _pick(c, ((c[6] > 0) & (descents <= MAX_DESCENTS)).nonzero().flatten())
+        _LANES[n] = (g, c)
+    return _LANES[n]
+
+
+@pytest.mark.parametrize("n,schedule", [(9, 0), (19, 0), (9, 1)])
+def test_ladder_kernels(lib, n, schedule):
+    """greedy_kernel and chase_kernel lane for lane against their plain
+    twins; a ply costs far fewer warp-wide operations than the 98-124 it
+    took on these lanes when a ply ran its floods one after another."""
+    g, c = _ladder_lanes(n)
+    res, forked, g_ops = H.run_greedy(lib, g, n, schedule=schedule)
+    want_res, want_forked, steps = LK.greedy_steps_plain(*g, n)
+    assert torch.equal(res, want_res) and torch.equal(forked, want_forked)
+    assert forked.sum() > 0
+    got, c_ops = H.run_chases(lib, c, n, schedule=schedule)
+    want, descents = LK.chase_descents_plain(*c, n)
+    assert torch.equal(got, want)
+    assert c[0].shape[0] >= 8
+    assert (got == LK.HUNTER_GOOD).any() and (got == LK.PREY_GOOD).any()
+    per_step = g_ops.sum().item() / steps.sum().item()
+    per_descent = c_ops.sum().item() / descents.sum().item()
+    print(f"{n}x{n}: greedy {g[0].shape[0]} lanes, {per_step:.1f} warp ops a step; "
+          f"chase {c[0].shape[0]} lanes, {per_descent:.1f} warp ops a descent")
+    assert per_descent < 75 and per_step < 75
+
+
+def test_ladder_kernel_limits(lib):
+    """A node budget of 6 descents and a 2-frame (then 1-frame) stack: the
+    freeze paths read PREY_GOOD as in the twins, and the limits bind."""
+    n = 9
+    g, c = _ladder_lanes(n)
+    free_g, _, _ = H.run_greedy(lib, g, n)
+    res, forked, _ = H.run_greedy(lib, g, n, node_cap=6)
+    want_res, want_forked = LK.run_greedy_plain(*g, n, node_cap=6)
+    assert torch.equal(res, want_res) and torch.equal(forked, want_forked)
+    assert (res != free_g).any()
+    free_c, _ = H.run_chases(lib, c, n)
+    for cap, forks in ((6, 2), (LK.NODE_CAP, 1)):
+        got, _ = H.run_chases(lib, c, n, node_cap=cap, max_forks=forks)
+        assert torch.equal(got, LK.run_chases_plain(*c, n, node_cap=cap, max_forks=forks))
+        assert (got != free_c).any(), (cap, forks)
 
 
 @pytest.mark.parametrize("n", [9, 19])
