@@ -22,7 +22,8 @@ no result line):
    equal their plain twins cell for cell and lane for lane (the lanes that
    ladder_planes_batch builds); ladder_planes_batch on the card equals the
    plain one on the CPU; on the goldens the four planes equal the
-   reference's encoder planes 33-36. Kernels and plain versions timed on
+   reference's encoder planes 33-36; ladder_prep also on the stress boards
+   (19x19 and 9x9 buffers). Kernels and plain versions timed on
    the card at B=256; the searches' bounds count the plies the plain twins
    ran on these lanes (for each search: the plies of its longest lane,
    their sum, median, p90 and p99 over the searched lanes, the kernel's
@@ -65,7 +66,8 @@ no result line):
     wrappers were given in phases 9-11 (a spy on ops/flood.py keeps the
     first inputs of each), equal to their plain versions and timed there;
     the launches of each shape give its share of the kernel's time; then
-    both on the stress boards' colour masks at 512 boards.
+    both on the stress boards' colour masks at 512 boards (the flood with
+    two seedings).
 
 Launch counters are set to 0 right before each main path (phases 5, 8-11)
 and read right after it. The second-to-last line is the kernels JSON (all
@@ -427,6 +429,13 @@ def main():
           f"{time.monotonic() - t0:.1f} s")
     ladder_rec = {k: {"cells": 0, "max_abs_err": 0} for k in
                   ("ladder_prep", "run_greedy", "run_chases")}
+    for n in (19, 9):
+        args_cpu = stress[n][:3]
+        args = tuple(x.to(dev).contiguous() for x in args_cpu)
+        cells, _ = compare(torch, TA.ladder_prep(*args), TA.ladder_prep_plain(*args_cpu),
+                           f"ladder_prep stress boards {n}x{n} buffer")
+        ladder_rec["ladder_prep"]["cells"] += cells
+        print(f"ladder_prep stress boards {n}x{n} buffer: {cells} outputs equal")
     cpu_planes = {}
     for tag, st in (("random", s19), ("goldens", g19)):
         args_cpu = (st.stones, st.size, st.ko)
@@ -935,22 +944,28 @@ def main():
               f"equal the plain version; (kernel - bound) x launches "
               f"{(ms - b_ms) * n_launch:.3f} ms  [{card}]")
     # the stress boards' colour masks, tiled to the labels' main shape (512
-    # boards); the flood seeded at the mask's cells next to another cell
+    # boards); the flood seeded at the cells on the mask's edge,
+    # and at its cells next to an empty one (reach's seeds: on the double
+    # spiral one hole, from which the flood climbs every turn of the snake)
     for n in (19, 9):
         st, sz = stress[n][:2]
         masks = torch.stack([(st == c) & TB.board_mask(sz, n) for c in (0, 1, 2)])
-        masks = masks.reshape(-1, n, n).repeat(-(-512 // (3 * st.shape[0])), 1, 1)[:512]
+        libs = masks & TB.nbr_or(masks[0])
+        reps = -(-512 // (3 * st.shape[0]))
+        masks, libs = (x.reshape(-1, n, n).repeat(reps, 1, 1)[:512] for x in (masks, libs))
         seeds = masks & TB.nbr_or(~masks)
-        d_masks, d_seeds = masks.to(dev), seeds.to(dev)
-        for name, a, a_cpu in (("chain_labels", (d_masks,), (masks,)),
-                               ("flood", (d_seeds, d_masks), (seeds, masks))):
+        d_masks, d_seeds, d_libs = masks.to(dev), seeds.to(dev), libs.to(dev)
+        for name, seeding, a, a_cpu in (
+                ("chain_labels", "", (d_masks,), (masks,)),
+                ("flood", " (seeds on the mask's edge)", (d_seeds, d_masks), (seeds, masks)),
+                ("flood", " (seeds next to an empty cell)", (d_libs, d_masks), (libs, masks))):
             cells, err = compare(torch, {name: getattr(FK, name)(*a)},
                                  {name: plains[name](*a_cpu)},
-                                 f"{name} stress boards {n}x{n}")
+                                 f"{name}{seeding} stress boards {n}x{n}")
             rec[name]["cells"] += cells
             rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
             ms = time_card(torch, getattr(FK, name), a, iters=10)
-            print(f"{name} on the stress boards' colour masks, {n}x{n} buffer, 512 "
+            print(f"{name}{seeding} on the stress boards' colour masks, {n}x{n} buffer, 512 "
                   f"boards: {cells} cells equal the plain version, kernel {ms:.4f} ms "
                   f"[{card}]")
     phase_done("fixpoint shapes")

@@ -268,8 +268,8 @@ def ab_kernels(old_csrc, device="cuda"):
     of ops/analysis.py, ops/flood.py and ops/ladder_kernel.py) pointed at
     that side's build. Inputs: the 256 random 19x19 positions of
     chip_smoke.py phase 3 and the stress boards of game/positions.py, at the
-    main paths' board counts (the flood kernel, unchanged since it was
-    ported, reads the spread of two equal builds); the ladder searches on
+    main paths' board counts (a kernel whose source is the same on both
+    sides reads the spread of two equal builds); the ladder searches on
     the lanes that ladder_planes_batch gives them on those positions
     (greedy: every lane, chase: the forked ones). AB_INNER calls of a case
     are captured in one CUDA graph a side; each of AB_ROUNDS rounds replays
@@ -325,6 +325,10 @@ def ab_kernels(old_csrc, device="cuda"):
     black, white = s.stones == 1, s.stones == 2
     colours = torch.cat([black, white])                      # both colours: 512
     st_masks = torch.cat([stress[0] == c for c in (0, 1, 2)])
+    # seeded at the cells next to an empty one, as reach() seeds: on the
+    # double spiral the black flood starts at the one hole and climbs
+    # every turn of the snake
+    st_libs = st_masks & TB.nbr_or((stress[0] == 0).repeat(3, 1, 1))
 
     def flood_args(masks, boards):
         (m,) = tiled((masks,), boards)
@@ -341,6 +345,8 @@ def ab_kernels(old_csrc, device="cuda"):
         "step_and_analyze B=256": (TA.step_and_analyze, tiled(rnd, 256)),
         "step_and_analyze B=256 stress": (TA.step_and_analyze, tiled(stress, 256)),
         "board_analysis B=256": (TA.board_analysis, tiled(rnd[:4], 256)),
+        "ladder_prep B=256": (TA.ladder_prep, tiled(rnd[:3], 256)),
+        "ladder_prep B=256 stress": (TA.ladder_prep, tiled(stress[:3], 256)),
         "step_and_legal B=256": (TA.step_and_legal, tiled(rnd, 256)),
         "step_and_legal B=4096": (TA.step_and_legal, tiled(rnd, 4096)),
         "chain_labels 256 boards": (FK.chain_labels, tiled((black,), 256)),
@@ -350,6 +356,7 @@ def ab_kernels(old_csrc, device="cuda"):
         "flood 256 boards": (FK.flood, flood_args(black, 256)),
         "flood 512 boards": (FK.flood, flood_args(colours, 512)),
         "flood 92416 boards": (FK.flood, flood_args(colours, 92416)),
+        "flood 512 boards stress": (FK.flood, tiled((st_libs, st_masks), 512)),
         f"run_greedy {lanes[0].shape[0]} lanes": (
             lambda *a: LK.run_greedy(*a, n), greedy_lanes),
         f"run_chases {int(forked_lanes[6].sum())} forked lanes": (

@@ -18,8 +18,8 @@
 // times an unrolled one (PERF.md, section 6). The design:
 //   - one thread block per board and one thread per cell, the whole board
 //     and every scratch map in shared memory;
-//   - every labelling of the step+analysis path is the union-find
-//     labelling of board.cuh: two barriers whatever the board, where the
+//   - every labelling of the four kernels is the union-find labelling of
+//     board.cuh: two barriers whatever the board, where a min-label
 //     relaxation took one a pass and tens of passes on a long chain;
 //   - work that the TPU kernel does in separate passes shares phases:
 //     one labelling gives the chains of both colours and the empty regions
@@ -639,7 +639,7 @@ step_analysis_kernel(const int8_t* __restrict__ stones,
 // stone already in place) gives both the opponent chains whose liberties
 // decide the captures and, minus the captured ones, the child's chains.
 // Four barriers whatever the board (load, hook, roots, captures and
-// liberties), where the relaxation it replaces took one a pass. A 4.2 KB
+// liberties), where the relaxation it replaced took one a pass. A 4.2 KB
 // shared struct: residency is set by the 384 threads a block, five blocks
 // an SM.
 // ---------------------------------------------------------------------------
@@ -787,12 +787,26 @@ step_legal_kernel(const int8_t* __restrict__ stones,
 // ---------------------------------------------------------------------------
 // Ladder candidate prep (game/ladder.py reads it): chain labels, liberties
 // capped at 3, each chain's first and second liberty vertex, and the
-// single-vertex legality of both colours. Bounded, like the analysis, by a
-// few serial barrier passes per board. Liberties are exact distinct counts
-// per chain root (shared-memory atomics) capped afterwards, instead of the
-// TPU kernel's k-th-liberty propagations over float labels. The first
-// liberty is an atomicMin of the adjacent empty cells into the root; the
-// second a second pass that leaves the first out.
+// single-vertex legality of both colours. One block per board: at the
+// search's B=256 the launch is one wave, so its time is one board's chain
+// of phases. Three barriers on every board (load, hook, roots and
+// liberties):
+//   - one union-find labelling of both colours (class = colour; board.cuh),
+//     whose roots are each chain's smallest flat index, the labels output;
+//   - in the roots' phase, one liberty pass of shared-memory atomics:
+//     every empty cell climbs to the roots of its neighbour chains itself
+//     (a warp-uniform loop, as uf_flatten's; parents only point down to a
+//     smaller cell of the same chain and flatten only writes roots, so no
+//     barrier is needed first), adds one to each distinct one and offers
+//     itself as a liberty vertex. Liberties are exact distinct counts
+//     capped afterwards, where the TPU kernel propagates k-th liberties
+//     over float labels. The first liberty is an atomicMin; the second
+//     needs no pass of its own: of the
+//     value an atomicMin replaces and the one it offers, the larger is a
+//     candidate for the second, the smallest vertex is never one, and the
+//     second smallest always is (it either meets the smallest already
+//     there or is replaced by it), so an atomicMin of the candidates gives
+//     the second liberty.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(MAXNN)
 ladder_prep_kernel(const int8_t* __restrict__ stones,
@@ -809,42 +823,59 @@ ladder_prep_kernel(const int8_t* __restrict__ stones,
   const int sz = size[b];
   const bool m = g.cell && g.y < sz && g.x < sz;
   const int8_t v = g.cell ? stones[off + t] : 0;
+  const uint8_t c = m ? (uint8_t)v : 0;
+  // ---- 1: the board; seeds of one labelling of both colours
   if (g.cell) {
-    cls[t] = m ? (uint8_t)v : 0;
+    cls[t] = c;
     msk[t] = m;
     cnt[t] = 0;
     l1[t] = g.nn;
     l2[t] = g.nn;
   }
+  uf_seed(g, c, lbl);
   __syncthreads();
-  label_by_class(g, cls, lbl);
-  // every empty cell is one liberty of each distinct adjacent chain
+  // ---- 2
+  uf_hook(g, cls, lbl);
+  __syncthreads();
+  // ---- 3: roots; every empty cell climbs to its neighbour chains' roots
+  // and is one liberty of each distinct one
+  const int root = uf_flatten(g, c != 0, lbl);
   const bool empty = m && v == 0;
   int adj[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     const int q = g.nb[d];
-    int l = (empty && q >= 0 && cls[q]) ? lbl[q] : -1;
+    adj[d] = (empty && q >= 0 && cls[q]) ? lbl[q] : -1;
+  }
+  while (true) {
+    bool climb = false;
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      if (adj[d] >= 0) {
+        const int up = lbl[adj[d]];
+        climb |= up != adj[d];
+        adj[d] = up;
+      }
+    if (!__any_sync(ALL, climb)) break;
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    int l = adj[d];
     for (int e = 0; e < d; ++e)
       if (adj[e] == l) l = -1;
     adj[d] = l;
     if (l >= 0) {
       atomicAdd(&cnt[l], 1);
-      atomicMin(&l1[l], t);
+      const int old = atomicMin(&l1[l], t);
+      atomicMin(&l2[l], max(old, t));
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int d = 0; d < 4; ++d)
-    if (adj[d] >= 0 && l1[adj[d]] != t) atomicMin(&l2[adj[d]], t);
-  __syncthreads();
   if (!g.cell) return;
-  const bool stone = cls[t] != 0;
-  const int root = stone ? lbl[t] : 0;
-  labels[off + t] = stone ? root : -1;
-  nlibs[off + t] = stone ? min(cnt[root], 3) : 0;
-  lib1[off + t] = stone ? l1[root] : g.nn;
-  lib2[off + t] = stone ? l2[root] : g.nn;
+  labels[off + t] = c ? root : -1;
+  nlibs[off + t] = c ? min(cnt[root], 3) : 0;
+  lib1[off + t] = c ? l1[root] : g.nn;
+  lib2[off + t] = c ? l2[root] : g.nn;
   // legal for a colour: empty, not ko, and an empty neighbour, an own
   // neighbour chain with >= 2 liberties or an opponent one in atari
   bool nb_empty = false, ok_b = false, ok_w = false;
@@ -852,13 +883,13 @@ ladder_prep_kernel(const int8_t* __restrict__ stones,
   for (int d = 0; d < 4; ++d) {
     const int q = g.nb[d];
     if (q < 0 || !msk[q]) continue;
-    const uint8_t c = cls[q];
-    if (c == 0) {
+    const uint8_t cq = cls[q];
+    if (cq == 0) {
       nb_empty = true;
       continue;
     }
     const int lq = cnt[lbl[q]];
-    if (c == 1) {
+    if (cq == 1) {
       ok_b |= lq >= 2;
       ok_w |= lq == 1;
     } else {

@@ -1,18 +1,20 @@
-// Device code shared by the board kernels (analysis.cu, flood.cu): the
-// per-thread cell geometry and the two chain/region labellings.
+// Device code shared by the board kernels (analysis.cu, flood.cu) and the
+// ladder kernels (ladder.cu): the per-thread cell geometry and the
+// union-find chain/region labelling of the block-per-board kernels, and the
+// row fill of the warp-per-board ones.
 //
-// Layout: one thread block per board, one thread per cell of the n x n
-// buffer (n <= 19, so at most 361 cells, rounded up to whole warps).
+// Block-per-board layout: one thread block per board, one thread per cell
+// of the n x n buffer (n <= 19, so at most 361 cells, rounded up to whole
+// warps). Warp-per-board layout (flood_kernel, and a ladder lane in
+// ladder.cu): one warp per board, lane r holding row r as a bitmask.
 // ops/build.py rebuilds a library when this header is newer than it.
 //
 // What bounds a board kernel on this card is one board's serial chain of
 // phases (a block-wide barrier each), and the longest dependent chain of
 // shared-memory steps in each phase, not bytes or arithmetic. The
 // union-find labelling below (uf_seed, uf_hook, uf_flatten) takes two
-// barriers whatever the board; the relaxation (label_by_class) takes one
-// barrier a pass and as many passes as the board needs (a long snake chain
-// costs tens). The relaxation stays for the kernels not yet redesigned
-// (flood_kernel, ladder_prep_kernel).
+// barriers whatever the board, so no board kernel has a barrier loop whose
+// trip count depends on the board.
 
 #pragma once
 
@@ -23,6 +25,7 @@ namespace {
 
 constexpr int MAXNN = 384;        // 19*19 = 361 cells, rounded up to warps
 constexpr int BIG = 0x3fffffff;   // "no label" / "no cell"
+constexpr unsigned ALL = 0xffffffffu;   // every lane of a warp
 
 struct Geo {
   int t, n, nn, y, x;
@@ -50,36 +53,6 @@ __device__ __forceinline__ Geo make_geo(int n) {
   g.dg[2] = (dn && lf) ? g.t + n - 1 : -1;
   g.dg[3] = (dn && rt) ? g.t + n + 1 : -1;
   return g;
-}
-
-// Label the 4-connected components of cells whose class `cls` is non-zero,
-// connecting only neighbours of equal class (a 0/1 mask is one class);
-// label = min flat index, BIG off-component. In-place relaxation with pointer jumping: values only
-// decrease and always name a cell of the same component, so any
-// interleaving converges, and a pass with no write is a true fixpoint.
-// Every thread of the block must call it; it ends on a barrier.
-__device__ void label_by_class(const Geo& g, const volatile uint8_t* cls,
-                               volatile int* lbl) {
-  uint8_t c = g.cell ? cls[g.t] : 0;
-  if (g.cell) lbl[g.t] = c ? g.t : BIG;
-  bool changed = true;
-  while (__syncthreads_or(changed)) {
-    changed = false;
-    if (c) {
-      int l = lbl[g.t];
-      int best = l;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        int q = g.nb[d];
-        if (q >= 0 && cls[q] == c) best = min(best, lbl[q]);
-      }
-      best = min(best, lbl[best]);
-      if (best < l) {
-        lbl[g.t] = best;
-        changed = true;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -170,6 +143,15 @@ __device__ __forceinline__ int uf_flatten(const Geo& g, bool labelled, volatile 
   if (!lab) return BIG;
   p[g.t] = x;
   return x;
+}
+
+// The runs of `a` in this row that hold a bit of `x` (x within a; ra is a
+// reversed): a carry from each bit of x runs east through its run
+// ((a + x) ^ a), and the same on the reversed row runs west.
+__device__ __forceinline__ unsigned close_row(unsigned x, unsigned a, unsigned ra) {
+  const unsigned east = (((a + x) ^ a) & a) | x;
+  const unsigned rx = __brev(x);
+  return east | __brev((((ra + rx) ^ ra) & ra) | rx);
 }
 
 inline int threads_for(int n) { return ((n * n + 31) / 32) * 32; }

@@ -49,6 +49,9 @@
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 
 namespace shim {
 

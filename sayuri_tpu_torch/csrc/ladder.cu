@@ -50,8 +50,7 @@
 // its per-lane limits: node_cap descents, max_forks frames, MAX_ALTS stored
 // alternatives; hitting a limit reads as PREY_GOOD.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "board.cuh"   // close_row, ALL
 
 namespace {
 
@@ -60,7 +59,6 @@ constexpr int MAX_FORKS = 56;
 constexpr int MAX_ALTS = 4;
 constexpr int BIGI = 1000000000;
 constexpr int UNDECIDED = 0, PREY_GOOD = 1, HUNTER_GOOD = 2;
-constexpr unsigned ALL = 0xffffffffu;
 constexpr int WARPS = 4;          // lanes per block, one warp each
 constexpr int KMAX = 8;           // boards a vertical exchange carries
 constexpr int SLOTS = ROWS + 2;   // a board's rows in xs, a zero row each side
@@ -108,15 +106,6 @@ __device__ __forceinline__ void exchange(Row& g, const unsigned (&v)[K],
 // OR of the east and west neighbours within the row
 __device__ __forceinline__ unsigned side_nbr(const Row& g, unsigned b) {
   return ((b << 1) & g.colmask) | (b >> 1);
-}
-
-// The runs of `a` in this row that hold a bit of `x` (x within a; ra is a
-// reversed): a carry from each bit of x runs east through its run
-// ((a + x) ^ a), and the same on the reversed row runs west.
-__device__ __forceinline__ unsigned close_row(unsigned x, unsigned a, unsigned ra) {
-  const unsigned east = (((a + x) ^ a) & a) | x;
-  const unsigned rx = __brev(x);
-  return east | __brev((((ra + rx) ^ ra) & ra) | rx);
 }
 
 // Grow K seeds x[k], each within allowed[k], until none of them grows. The

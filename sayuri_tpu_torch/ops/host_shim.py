@@ -7,16 +7,18 @@ warp operations and atomics emulated; see that file), with small C entry
 points per source that run a kernel over a batch of boards or lanes. The
 wrappers below take and return CPU tensors in the form of the CUDA wrappers
 of ops/flood.py, ops/analysis.py and ops/ladder_kernel.py, plus the number
-of block barriers each board passed (board kernels) or of warp-wide
-operations each lane ran (ladder kernels: a lane is one warp, and the count
-stands for its serial latency).
+of block barriers each board passed (block-per-board kernels) or of
+warp-wide operations each board or lane ran (the flood and the ladder
+kernels: a board or a lane is one warp, and the count stands for its serial
+latency).
 
     python -m sayuri_tpu_torch.ops.host_shim [CSRC_DIR ...]
 
 prints, for the kernels of each source directory (default: the package's
-csrc/), the barriers a board over the 256 random 19x19 positions of
-chip_smoke.py phase 3 (median and maximum) and over the stress boards of
-game/positions.py, and the warp-wide operations of the chase and greedy
+csrc/), the barriers a board (the flood: warp-wide operations) over the
+256 random 19x19 positions of chip_smoke.py phase 3 (median and maximum)
+and over the stress boards of game/positions.py, and the warp-wide
+operations of the chase and greedy
 kernels on the lanes that ladder_planes_batch gives them on those
 positions (the chase: the forked ones): a ply on average and on the
 LONGEST_LANES longest lanes (by the plain twins' plies), as one JSON line.
@@ -53,11 +55,14 @@ extern "C" void shim_labels(const void* mask, void* out, long long boards,
     labels_kernel((const uint8_t*)mask, (long long*)out, n);
   }}, barriers, schedule);
 }}
+extern "C" int shim_flood_boards_a_block() {{ return FLOOD_WARPS; }}
 extern "C" void shim_flood(const void* seed, const void* allowed, void* out,
-                           long long boards, int n, {_TAIL}) {{
-  shim::launch(boards, threads_for(n), [=] {{
-    flood_kernel((const uint8_t*)seed, (const uint8_t*)allowed, (bool*)out, n);
-  }}, barriers, schedule);
+                           long long boards, int n, {_TAIL},
+                           long long* warp_ops) {{
+  shim::launch((boards + FLOOD_WARPS - 1) / FLOOD_WARPS, FLOOD_WARPS * 32, [=] {{
+    flood_kernel((const uint8_t*)seed, (const uint8_t*)allowed, (bool*)out,
+                 boards, n);
+  }}, barriers, schedule, warp_ops);
 }}
 """,
     "analysis": f"""
@@ -81,6 +86,15 @@ extern "C" void shim_step_analysis(const void* stones, const void* size,
         (const int*)zob, (int8_t*)new_stones, (int*)ncap, (int*)new_ko,
         (int*)hash, (bool*)legal, (int*)libs, (int*)own, (bool*)safe,
         (int*)sown, n);
+  }}, barriers, schedule);
+}}
+extern "C" void shim_ladder_prep(const void* stones, const void* size,
+    const void* ko, void* labels, void* nlibs, void* lib1, void* lib2,
+    void* legal_black, void* legal_white, int batch, int n, {_TAIL}) {{
+  shim::launch(batch, threads_for(n), [=] {{
+    ladder_prep_kernel((const int8_t*)stones, (const int*)size,
+        (const int*)ko, (int*)labels, (int*)nlibs, (int*)lib1, (int*)lib2,
+        (bool*)legal_black, (bool*)legal_white, n);
   }}, barriers, schedule);
 }}
 extern "C" void shim_step_legal(const void* stones, const void* size,
@@ -196,14 +210,21 @@ def chain_labels(lib, mask, schedule=0):
 
 
 def flood(lib, seed, allowed, schedule=0):
-    """flood_kernel on [..., n, n] bool -> (bool flood, barriers)."""
+    """flood_kernel on [..., n, n] bool -> (bool flood, warp-wide operations
+    of each board: a board is one warp, and the count stands for its serial
+    latency). The kernel passes no block barrier."""
     seed, allowed = seed.contiguous(), allowed.contiguous()
     boards, n = _lead(allowed)
     out = torch.empty_like(allowed)
-    bar = _run(lib.shim_flood, _p(seed), _p(allowed), _p(out),
-               ctypes.c_longlong(boards), ctypes.c_int(n), boards=boards,
-               schedule=schedule)
-    return out, bar
+    per_block = lib.shim_flood_boards_a_block()
+    blocks = -(-boards // per_block)
+    ops = torch.zeros(blocks * per_block, dtype=torch.int64)
+    barriers = torch.zeros(blocks, dtype=torch.int64)
+    lib.shim_flood(_p(seed), _p(allowed), _p(out), ctypes.c_longlong(boards),
+                   ctypes.c_int(n), _p(barriers), ctypes.c_ulonglong(schedule), _p(ops))
+    if barriers.any():
+        raise RuntimeError("flood_kernel passed a block barrier")
+    return out, ops[:boards]
 
 
 def _analysis_out(b, n):
@@ -253,6 +274,20 @@ def step_and_analyze(lib, stones, size, ko, to_move, action, schedule=0):
                ctypes.c_int(b), ctypes.c_int(n), boards=b, schedule=schedule)
     step["new_hash"] = step["new_hash"].to(torch.int64) & 0xFFFFFFFF
     return {**step, **ana}, bar
+
+
+def ladder_prep(lib, stones, size, ko, schedule=0):
+    """ladder_prep_kernel -> (the dict of ops.analysis.ladder_prep,
+    barriers)."""
+    b, n = stones.shape[0], stones.shape[-1]
+    out = {k: torch.empty((b, n * n), dtype=torch.int32)
+           for k in ("labels", "nlibs", "lib1", "lib2")}
+    out.update({k: torch.empty((b, n * n), dtype=torch.bool)
+                for k in ("legal_black", "legal_white")})
+    bar = _run(lib.shim_ladder_prep, *_inputs(stones, size, ko),
+               *(_p(t) for t in out.values()), ctypes.c_int(b), ctypes.c_int(n),
+               boards=b, schedule=schedule)
+    return out, bar
 
 
 def step_and_legal(lib, stones, size, ko, to_move, action, schedule=0):
@@ -323,9 +358,10 @@ def colour_masks(stones, size):
 
 
 def barrier_counts(lib, args):
-    """Barriers a board of each kernel on (stones, size, ko, to_move,
-    action): {kernel: [count per board]} (labels and flood over the colour
-    masks, the flood seeded by the cells next to an empty one)."""
+    """Barriers a board of each block-per-board kernel on (stones, size, ko,
+    to_move, action), and the flood's warp-wide operations a board:
+    {kernel: [count per board]} (labels and flood over the colour masks,
+    the flood seeded by the cells next to an empty one)."""
     from sayuri_tpu_torch.game import board as B
 
     stones, size, ko, to_move, action = args
@@ -335,8 +371,9 @@ def barrier_counts(lib, args):
         "step_and_analyze": step_and_analyze(lib, *args)[1].tolist(),
         "board_analysis": board_analysis(lib, *args[:4])[1].tolist(),
         "step_and_legal": step_and_legal(lib, *args)[1].tolist(),
+        "ladder_prep": ladder_prep(lib, *args[:3])[1].tolist(),
         "chain_labels": chain_labels(lib, masks)[1].tolist(),
-        "flood": flood(lib, seeds, masks)[1].tolist(),
+        "flood (warp ops)": flood(lib, seeds, masks)[1].tolist(),
     }
 
 

@@ -157,11 +157,13 @@ def test_kernels_on_stress_boards(cuda, n):
     """The stress boards of game/positions.py (a spiral snake chain, a
     checkerboard of one-stone chains, full and empty boards, the capture of
     a whole spiral, smaller games in the buffer) through every board kernel
-    on the card, equal to the plain versions."""
+    on the card, equal to the plain versions; the flood seeded on the
+    masks' edges and next to empty cells (on the double spiral: one hole)."""
     args = stress_positions(n)[:5]
     dargs = tuple(x.to(cuda) for x in args)
     for fn, plain, k in ((TA.step_and_analyze, TA.step_and_analyze_plain, 5),
                          (TA.board_analysis, TA.board_analysis_plain, 4),
+                         (TA.ladder_prep, TA.ladder_prep_plain, 3),
                          (TA.step_and_legal, TA.step_and_legal_plain, 5)):
         want = plain(*args[:k])
         got = fn(*dargs[:k])
@@ -169,10 +171,10 @@ def test_kernels_on_stress_boards(cuda, n):
             assert torch.equal(got[key].cpu(), v.to(got[key].dtype)), (fn.__name__, key)
     mask = TB.board_mask(args[1], n)
     masks = torch.stack([(args[0] == c) & mask for c in (0, 1, 2)])
-    seeds = masks & TB.nbr_or(~masks)
     assert torch.equal(FK.chain_labels(masks.to(cuda)).cpu(), TB.chain_labels_plain(masks))
-    assert torch.equal(FK.flood(seeds.to(cuda), masks.to(cuda)).cpu(),
-                       TB.flood_plain(seeds, masks))
+    for seeds in (masks & TB.nbr_or(~masks), masks & TB.nbr_or(masks[0])):
+        assert torch.equal(FK.flood(seeds.to(cuda), masks.to(cuda)).cpu(),
+                           TB.flood_plain(seeds, masks))
 
 
 def test_env_queries_on_card_equal_cpu(cuda):

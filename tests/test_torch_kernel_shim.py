@@ -1,26 +1,30 @@
 """The CUDA kernels themselves, run on the CPU through the g++ shim
 (csrc/host_shim.h, ops/host_shim.py), against their plain versions cell
 for cell and lane for lane: labels_kernel, flood_kernel,
-step_analysis_kernel, board_analysis_kernel and step_legal_kernel, at 9x9
-and 19x19, on seeded random positions and on the stress boards of
+step_analysis_kernel, board_analysis_kernel, ladder_prep_kernel and
+step_legal_kernel, at 9x9 and 19x19, on seeded random positions and on
+the stress boards of
 game/positions.py (a snake chain, one-stone chains, full and empty boards,
 smaller games in the buffer) plus hand-set moves for the light step
 (a whole-spiral capture, a suicide, a pass, a joining move, a ko
 capture); greedy_kernel and chase_kernel on the lanes that
 ladder_planes_batch builds on random 9x9 and 19x19 positions, also with
-limits small enough to bind. The stress masks' labels are also held
-against the JAX package's chain_labels. Skips when there is no C++
-compiler.
+limits small enough to bind. On the stress boards the labels and the
+flood are also held against the JAX package's chain_labels and flood, and
+the ladder prep against its Pallas kernel in interpret mode. Skips when
+there is no C++ compiler.
 """
 
 import statistics
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sayuri_tpu.game import board as JB
+from sayuri_tpu.ops import analysis as AK
 from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.game.positions import random_positions, spiral, stress_positions
 from sayuri_tpu_torch.ops import analysis as TA
@@ -96,6 +100,18 @@ def test_step_legal_kernel(lib, n, kind):
     _assert_equal(got, TA.step_and_legal_plain(*args), "step_legal_kernel")
     _report(f"step_legal_kernel {n}x{n} {kind}", bar)
     assert bar.unique().numel() == 1
+
+
+@pytest.mark.parametrize("n", [9, 19])
+@pytest.mark.parametrize("kind", KINDS)
+def test_ladder_prep_kernel(lib, n, kind):
+    """One labelling of both colours and a liberty pass in its roots'
+    phase: the same three barriers on every board."""
+    args = _positions(n, kind)[:3]
+    got, bar = H.ladder_prep(lib, *args)
+    _assert_equal(got, TA.ladder_prep_plain(*args), "ladder_prep_kernel")
+    _report(f"ladder_prep_kernel {n}x{n} {kind}", bar)
+    assert bar.tolist() == [3] * bar.numel()
 
 
 def _board(rows):
@@ -213,15 +229,49 @@ def test_labels_kernel(lib, n, kind):
     assert bar.tolist() == [2] * bar.numel()
 
 
+def _flood_args(stones, size):
+    """The colour masks ([3, B, n, n]) seeded at their cells next to an
+    empty cell."""
+    masks = H.colour_masks(stones, size)
+    return masks & TB.nbr_or(masks[0]), masks
+
+
+# warp-wide operations of a 19x19 board outside the growth loop: 6
+# shuffles in (one an input to pair the loaded chunks, two an input to take
+# the rows), 12 out; a growth step takes 3
+FLOOD_FIXED_OPS_19, FLOOD_STEP_OPS = 18, 3
+
+
 @pytest.mark.parametrize("n", [9, 19])
 @pytest.mark.parametrize("kind", KINDS)
 def test_flood_kernel(lib, n, kind):
-    stones, size = _positions(n, kind)[:2]
-    masks = H.colour_masks(stones, size)
-    seeds = masks & TB.nbr_or(masks[0])
-    got, bar = H.flood(lib, seeds, masks)
+    """One warp a board and no block barrier (the shim wrapper checks);
+    a board's warp-wide operations are a fixed part plus 3 a vertical
+    growth step, the last step finding no growth."""
+    seeds, masks = _flood_args(*_positions(n, kind)[:2])
+    got, ops = H.flood(lib, seeds, masks)
     assert torch.equal(got, TB.flood_plain(seeds, masks))
-    _report(f"flood_kernel {n}x{n} {kind}", bar)
+    b = ops.tolist()
+    print(f"flood_kernel {n}x{n} {kind}: warp ops a board median "
+          f"{statistics.median(b)}, max {max(b)}")
+    if n == 19:
+        steps = (ops - FLOOD_FIXED_OPS_19) / FLOOD_STEP_OPS
+        assert bool((steps >= 1).all()) and bool((steps == steps.round()).all())
+
+
+def test_flood_kernel_at_any_alignment(lib):
+    """Boards that start at every byte offset of a 16-byte chunk (views into
+    one buffer): the kernel loads aligned 16-byte chunks around each board
+    and takes only the board's bits."""
+    rng = np.random.RandomState(3)
+    n, b = 19, 5
+    for off in range(17):
+        allowed = torch.from_numpy(rng.rand(off + b * n * n) < 0.6)
+        seed = torch.from_numpy(rng.rand(off + b * n * n) < 0.05)
+        a, s = (x[off:].view(b, n, n) for x in (allowed, seed))
+        assert a.data_ptr() % 16 == (allowed.data_ptr() + off) % 16
+        got, _ = H.flood(lib, s, a)
+        assert torch.equal(got, TB.flood_plain(s, a)), off
 
 
 @pytest.mark.parametrize("schedule", [1, 2, 3])
@@ -236,6 +286,11 @@ def test_kernels_under_interleaving(lib, schedule):
         masks = H.colour_masks(*args[:2])
         got, _ = H.chain_labels(lib, masks, schedule=schedule)
         assert torch.equal(got, TB.chain_labels_plain(masks))
+        got, _ = H.ladder_prep(lib, *args[:3], schedule=schedule)
+        _assert_equal(got, TA.ladder_prep_plain(*args[:3]), f"prep {kind} {schedule}")
+        seeds, masks = _flood_args(*args[:2])
+        got, _ = H.flood(lib, seeds, masks, schedule=schedule)
+        assert torch.equal(got, TB.flood_plain(seeds, masks))
 
 
 @pytest.mark.parametrize("n", [9, 19])
@@ -252,6 +307,43 @@ def test_stress_labels_match_jax(lib, n):
     lbl = TB.chain_labels_plain(torch.from_numpy(sp)[None])[0]
     assert set(lbl[torch.from_numpy(sp)].tolist()) == {0}
     assert sp.sum() > n * n // 2 - n
+
+
+@pytest.mark.parametrize("n", [9, 19])
+def test_stress_flood_matches_jax(lib, n):
+    """The stress masks' floods through the JAX package's flood, the plain
+    version and the kernel; on the spiral the flood climbs one row a step
+    through every turn of the snake."""
+    seeds, masks = _flood_args(*_positions(n, "stress")[:2])
+    want = np.asarray(jax.jit(jax.vmap(jax.vmap(JB.flood)))(seeds.numpy(), masks.numpy()))
+    np.testing.assert_array_equal(want, TB.flood_plain(seeds, masks))
+    got, ops = H.flood(lib, seeds, masks)
+    np.testing.assert_array_equal(want, got)
+    assert int(ops.max()) > 2 * int(ops.min())
+
+
+@pytest.mark.parametrize("n", [9, 19])
+def test_stress_ladder_prep_matches_jax(lib, n, monkeypatch):
+    """The stress boards through the JAX package's ladder prep (the Pallas
+    kernel in interpret mode, as tests/test_pallas_kernels.py runs it), the
+    plain version and the kernel: labels and both legality maps on every
+    cell; nlibs, lib1 and lib2 on chain cells, which are all the front end
+    reads (off a chain the Pallas kernel leaves partial values there)."""
+    monkeypatch.setattr(AK, "INTERPRET", True)
+    stones, size, ko = _positions(n, "stress")[:3]
+    ref = AK.ladder_prep_tpu(*(jnp.asarray(t.numpy()) for t in (stones, size, ko)))
+    got, _ = H.ladder_prep(lib, stones, size, ko)
+    plain = TA.ladder_prep_plain(stones, size, ko)
+    chain = got["labels"].numpy() >= 0
+    assert chain.any() and not chain.all()
+    for k, want in ref.items():
+        want = np.asarray(want).reshape(got[k].shape)
+        for out in (got, plain):
+            if k in ("labels", "legal_black", "legal_white"):
+                np.testing.assert_array_equal(want, out[k].numpy(), err_msg=k)
+            else:
+                np.testing.assert_array_equal(want[chain], out[k].numpy()[chain],
+                                              err_msg=k)
 
 
 def test_analysis_kernels_on_passdead_goldens(lib):
