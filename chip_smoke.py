@@ -63,14 +63,33 @@ no result line):
     handicap query; its sampled moves replayed on the CPU give the same
     GoState, and every lane keeps a legal move.
 12. fixpoint shapes: flood and chain_labels at every board count their
-    wrappers were given in phases 9-11 (a spy on ops/flood.py keeps the
+    wrappers were given in phases 9-11 (a spy on the kernel wrappers keeps the
     first inputs of each), equal to their plain versions and timed there;
     the launches of each shape give its share of the kernel's time; then
     both on the stress boards' colour masks at 512 boards (the flood with
     two seedings).
 
-Launch counters are set to 0 right before each main path (phases 5, 8-11)
-and read right after it. The second-to-last line is the kernels JSON (all
+13. self-play: a v5 weight file of the b6c96 net (seeded random weights)
+    written by the port's exporter into a temporary --weights-dir, then
+    the CLI, ``python -m sayuri_tpu_torch --mode selfplay --config
+    configs/selfplay-gumbel-p150.txt`` with the playouts cut to 24/8 (all
+    else the config's: 64 parallel games, Gumbel, playout caps, the bkp:9 /
+    bkp:7 and srs:area:territory queries, the NN cache), one round of 64
+    games: every chunk holds 53 lines a position starting "2", "0",
+    bsize; the chunks hold as many positions as there were kept records;
+    every SGF's moves replay legally (superko included) through the plain
+    CPU env; net_queries is written; territory lanes ran the helper
+    playout; the round's kept positions/s. A spy keeps, for each kernel
+    wrapper and shape in that run, the inputs of a launch from the second
+    half of its launches there (the last power-of-two launch number), so
+    the boards are mid- to late-game: each is held against its plain twin
+    there and timed. Then the 19x19 reading: ``bench.bench_selfplay``
+    (b6c96 bf16, the config's 150/50 playouts, B=256, 8 moves after a
+    one-move warm-up), moves/s and kept positions/s, with the NN cache of
+    512 sets and without it, alternated (512, 0, 0, 512).
+
+Launch counters are set to 0 right before each main path (phases 5, 8-11,
+13) and read right after it. The second-to-last line is the kernels JSON (all
 eight kernels: launches on their path, max abs error against the plain
 version, kernel and plain ms, the bound, library call); the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
@@ -103,6 +122,11 @@ OPS_PER_CELL = 8
 # neighbour step, OPS_PER_CELL a row, over the lane's own, opponent and prey
 # rows on the board
 PLY_BOARDS = 3
+# phase 13: the CLI self-play run (playouts cut so a whole 9x9 game batch
+# fits the smoke) and the 19x19 reading
+SP_PLAYOUTS, SP_FAST_PLAYOUTS, SP_GAMES = 24, 8, 64
+SP_BENCH_BATCH, SP_BENCH_MOVES = 256, 8
+SP_BENCH_CACHE_SETS = (512, 0, 0, 512)   # the config's cache, then none
 
 
 def phase(name):
@@ -274,34 +298,86 @@ class LaneSpy:
             setattr(self.LK, name, fn)
 
 
-class ShapeSpy:
-    """While installed, counts the CUDA launches of ops/flood.py's flood
-    and chain_labels by (name, number of boards) and keeps a copy of the
-    first inputs of each shape (to check and time the kernels at the
-    shapes their main paths give them)."""
+class KernelSpy:
+    """While installed, counts the CUDA launches of all eight kernel
+    wrappers by (name, boards or lanes) and keeps a copy of the inputs of
+    one launch of each (to check and time every kernel at the shapes a main
+    path gave it): the first launch, or with `late` the last launch whose
+    number at that shape is a power of two, which lies in the second half
+    of the run's launches there (`kept[key]` holds its number)."""
 
-    NAMES = ("flood", "chain_labels")
-
-    def __init__(self, FK):
+    def __init__(self, TA, LK, FK, late=False):
+        self.late = late
+        self.kept = {}
+        self.wrappers = [(TA, ("step_and_analyze", "board_analysis", "ladder_prep",
+                               "step_and_legal")),
+                         (LK, ("run_greedy", "run_chases")),
+                         (FK, ("flood", "chain_labels"))]
         self.FK = FK
         self.counts = {}
         self.inputs = {}
 
     def install(self):
-        self.real = {k: getattr(self.FK, k) for k in self.NAMES}
-        for name, fn in self.real.items():
-            def spy(*args, _fn=fn, _name=name):
-                t = args[-1]
-                if t.device.type == "cuda" and t.numel():
-                    key = (_name, t.numel() // (t.shape[-1] ** 2))
-                    self.counts[key] = self.counts.get(key, 0) + 1
-                    self.inputs.setdefault(key, tuple(a.clone() for a in args))
-                return _fn(*args)
-            setattr(self.FK, name, spy)
+        self.real = []
+        for mod, names in self.wrappers:
+            for name in names:
+                fn = getattr(mod, name)
+                self.real.append((mod, name, fn))
+
+                def spy(*args, _fn=fn, _name=name, _mod=mod):
+                    t = args[-1] if _mod is self.FK else args[0]
+                    if t.device.type == "cuda" and t.numel():
+                        size = (t.numel() // (t.shape[-1] ** 2) if _mod is self.FK
+                                else t.shape[0])
+                        key = (_name, size)
+                        k = self.counts[key] = self.counts.get(key, 0) + 1
+                        if k == 1 or (self.late and k & (k - 1) == 0):
+                            self.kept[key] = k
+                            self.inputs[key] = tuple(
+                                a.clone() if hasattr(a, "clone") else a for a in args)
+                    return _fn(*args)
+                setattr(mod, name, spy)
 
     def remove(self):
-        for name, fn in self.real.items():
-            setattr(self.FK, name, fn)
+        for mod, name, fn in self.real:
+            setattr(mod, name, fn)
+
+
+def replay_sgfs(torch, sgf_dir, n):
+    """Replay every SGF of `sgf_dir` in one batch through the plain CPU env
+    (a lane per game, padded with passes): every move must be the side to
+    move's and legal, positional superko included. Returns (games,
+    moves)."""
+    from sayuri_tpu_torch.game import sgf as SGF
+    from sayuri_tpu_torch.game.state import GoEnv
+
+    games = [SGF.parse_file(str(f))[0] for f in sorted(sgf_dir.glob("*.sgf"))]
+    if not games:
+        raise RuntimeError(f"no SGF in {sgf_dir}")
+    b = len(games)
+    env = GoEnv(n=n)
+    sizes = [g.board_size() for g in games]
+    seqs = [g.moves() for g in games]
+    s = env.new_batch(b, device="cpu").replace(
+        size=torch.tensor(sizes, dtype=torch.int32))
+    total = 0
+    for t in range(max(len(m) for m in seqs)):
+        live = torch.tensor([t < len(m) for m in seqs])
+        acts, colours = [], []
+        for m, size in zip(seqs, sizes):
+            c, v = m[t] if t < len(m) else (0, None)
+            colours.append(c)
+            acts.append(env.pass_action if v is None else (v // size) * n + v % size)
+        acts = torch.tensor(acts, dtype=torch.int32)
+        legal = env.legal_action_mask(s).gather(1, acts.long()[:, None])[:, 0]
+        ok = (legal & ~env.superko_violation(s, acts)
+              & (s.to_move == torch.tensor(colours)) & ~s.terminated)
+        bad = (live & ~ok).nonzero().flatten().tolist()
+        if bad:
+            raise RuntimeError(f"SGF replay: move {t} illegal in games {bad[:8]}")
+        total += int(live.sum())
+        s = env.step(s, torch.where(live, acts, env.pass_action))
+    return b, total
 
 
 def main():
@@ -323,7 +399,7 @@ def main():
     from sayuri_tpu_torch.ops import flood as FK
     from sayuri_tpu_torch.ops import ladder_kernel as LK
 
-    shape_spy = ShapeSpy(FK)
+    shape_spy = KernelSpy(TA, LK, FK)
 
     def reset_counts():
         TA.reset_launch_counts()
@@ -597,7 +673,7 @@ def main():
         m = MCTS(env9, fn, SearchConfig(max_nodes=48, max_depth=32))
         ctx = {"ladders": TL.ladder_planes_batch(st.stones, st.size, st.ko)}
         ev = fn(st, ctx)
-        tree9 = m.run(m.init_tree(st, ctx), 32, ctx)
+        tree9 = m.run(m.init_tree(st, ctx=ctx), 32, ctx=ctx)
         outs[where] = (ev, m.root_child_visits(tree9).cpu(), tree9.visits[:, 0].cpu(),
                        ctx["ladders"].cpu())
     compare(torch, {"planes": outs["cuda"][3]}, {"planes": outs["cpu"][3]},
@@ -918,7 +994,8 @@ def main():
     shape_launches = {}
     for run in shape_runs:
         for key, c in run.items():
-            shape_launches[key] = shape_launches.get(key, 0) + c
+            if key[0] in ("flood", "chain_labels"):
+                shape_launches[key] = shape_launches.get(key, 0) + c
     plains = {"flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
     for name in plains:
         seen = sum(c for (k, _), c in shape_launches.items() if k == name)
@@ -970,6 +1047,148 @@ def main():
                   f"[{card}]")
     phase_done("fixpoint shapes")
 
+    # ---- 13. self-play ----
+    phase("self-play")
+    import gzip
+    import shutil
+    import tempfile
+
+    from sayuri_tpu_torch import __main__ as CLI
+    from sayuri_tpu_torch.models import weights_io as W
+
+    work = Path(tempfile.mkdtemp(prefix="sayuri-selfplay-"))
+    wdir, out_dir = work / "weights", work / "out"
+    wdir.mkdir()
+    W.export_reference_weights(SayuriNet(NetConfig(boardsize=9)).init_random(11),
+                               str(wdir / "b6c96-seed11.txt"))
+    kernel_spy = KernelSpy(TA, LK, FK, late=True)
+    kernel_spy.install()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        pipe = CLI.main(["--mode", "selfplay",
+                         "--config", str(ROOT / "configs/selfplay-gumbel-p150.txt"),
+                         "--playouts", str(SP_PLAYOUTS),
+                         "--fastsearch-playouts", str(SP_FAST_PLAYOUTS),
+                         "--num-games", str(SP_GAMES),
+                         "--weights-dir", str(wdir), "--target-directory", str(out_dir)],
+                        device=dev)
+        torch.cuda.synchronize()
+    finally:
+        kernel_spy.remove()
+    sp_s = time.monotonic() - t0
+    sp_launches = counts()
+    rnd = pipe.last_round
+    print(f"selfplay CLI: {pipe.games_done} games of B={pipe.parallel_games} in "
+          f"{sp_s:.1f} s [{card}]; {rnd['moves']} moves, {rnd['kept_records']} kept "
+          f"records, {rnd['chunks']} chunk files; NN cache {rnd['queries']}; launches "
+          f"{({k: v for k, v in sp_launches.items() if v})}")
+    print(f"selfplay CLI round: {rnd['kept_records']} kept positions in "
+          f"{rnd['seconds']:.3f} s = {rnd['kept_records'] / rnd['seconds']:.2f} kept "
+          f"positions/s, {rnd['moves'] * pipe.parallel_games / rnd['seconds']:.2f} lane-moves/s "
+          f"(9x9/7x7 b6c96 bf16, {SP_PLAYOUTS}/{SP_FAST_PLAYOUTS} playouts, whole games with "
+          f"the helper playout)  [{card}]")
+    need(sp_launches, "self-play", some=("step_and_analyze", "board_analysis",
+                                         "ladder_prep", "run_greedy", "run_chases",
+                                         "flood", "chain_labels"))
+    seen = {}
+    for (name, _), c in kernel_spy.counts.items():
+        seen[name] = seen.get(name, 0) + c
+    if any(seen.get(k, 0) != v for k, v in sp_launches.items()):
+        raise RuntimeError(f"self-play: the spy saw {seen}, the counters {sp_launches}")
+    positions = 0
+    chunks = sorted(out_dir.glob("[tv]data/*/*.txt.gz"))
+    for f in chunks:
+        with gzip.open(f, "rt") as fh:
+            lines = fh.read().split("\n")[:-1]
+        if not lines or len(lines) % 53:
+            raise RuntimeError(f"{f.name}: {len(lines)} lines, not a multiple of 53")
+        for i in range(0, len(lines), 53):
+            if lines[i:i + 2] != ["2", "0"] or lines[i + 2] not in ("9", "7"):
+                raise RuntimeError(f"{f.name}: position {i // 53} starts {lines[i:i + 3]}")
+        positions += len(lines) // 53
+    if len(chunks) != rnd["chunks"] or positions != rnd["kept_records"] or not positions:
+        raise RuntimeError(f"chunks: {len(chunks)} files with {positions} positions for "
+                           f"{rnd['kept_records']} kept records")
+    n_games, n_moves = replay_sgfs(torch, out_dir / "sgf", pipe.env.n)
+    if n_games != SP_GAMES:
+        raise RuntimeError(f"{n_games} SGFs for {SP_GAMES} games")
+    queries = (out_dir / "net_queries").glob("*.txt")
+    q_text = [q.read_text().split() for q in queries]
+    if len(q_text) != 1 or int(q_text[0][0]) != 0 or int(q_text[0][1]) <= 0:
+        raise RuntimeError(f"net_queries: {q_text}")
+    if not (rnd["territory_lanes"] and rnd["helper_steps"]):
+        raise RuntimeError(f"territory helper: {rnd['territory_lanes']} territory lanes, "
+                           f"{rnd['helper_steps']} helper steps")
+    print(f"chunks: {len(chunks)} files, {positions} positions of 53 lines = the kept "
+          f"records; {n_games} SGFs replay legally on the CPU ({n_moves} moves); "
+          f"net_queries {' '.join(q_text[0])}; {rnd['territory_lanes']} territory lanes, "
+          f"helper playout {rnd['helper_steps']} moves")
+
+    # the NN cache runs every lane through the net (it saves no forward
+    # pass), so the reading is taken with it on and off, alternated
+    for cache_sets in SP_BENCH_CACHE_SETS:
+        reset_counts()
+        sp_bench = bench.bench_selfplay(SP_BENCH_BATCH, SP_BENCH_MOVES, device=dev,
+                                        nn_cache_size=cache_sets)
+        torch.cuda.synchronize()
+        bench_launches = counts()
+        need(bench_launches, "self-play bench", some=("step_and_analyze", "board_analysis",
+                                                      "ladder_prep", "run_greedy",
+                                                      "run_chases", "flood", "chain_labels"))
+        print(f"{bench.SELFPLAY_METRIC} = {sp_bench['positions_per_s']:.2f} positions/s, "
+              f"{sp_bench['moves_per_s']:.2f} moves/s (19x19 b6c96 bf16, "
+              f"{'/'.join(map(str, sp_bench['playouts']))} playouts, NN cache "
+              f"{cache_sets} sets, B={SP_BENCH_BATCH} x {sp_bench['moves']} moves, "
+              f"{sp_bench['positions']} kept positions in {sp_bench['seconds']:.3f} s; "
+              f"NN cache {sp_bench['queries']})  [{card}]")
+
+    plain_of = {"step_and_analyze": TA.step_and_analyze_plain,
+                "board_analysis": TA.board_analysis_plain,
+                "ladder_prep": TA.ladder_prep_plain,
+                "step_and_legal": TA.step_and_legal_plain,
+                "run_greedy": LK.run_greedy_plain, "run_chases": LK.run_chases_plain,
+                "flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
+    kernel_of = {name: getattr(mod, name) for mod, names in kernel_spy.wrappers
+                 for name in names}
+    sp_shapes = {}
+    for (name, size), n_launch in sorted(kernel_spy.counts.items()):
+        a = kernel_spy.inputs[(name, size)]
+        got = kernel_of[name](*a)
+        # the ladder searches' plain twins that also count each lane's plies
+        if name == "run_greedy":
+            res, forked, plies = LK.greedy_steps_plain(*a)
+            got = dict(zip(("result", "forked"), got))
+            want = {"result": res, "forked": forked}
+        elif name == "run_chases":
+            res, plies = LK.chase_descents_plain(*a)
+            got, want = {"result": got}, {"result": res}
+        else:
+            want = plain_of[name](*a)
+            if not isinstance(got, dict):
+                got, want = {name: got}, {name: want}
+        cells, err = compare(torch, got, want, f"{name} at {size} (self-play)")
+        ms = time_card(torch, kernel_of[name], a, iters=10)
+        plain_ms = time_card(torch, plain_of[name], a, iters=1, warmup=0)
+        if name.startswith("run_"):
+            # the searched lanes' bytes and the plies these inputs need
+            b_ms = bound(*lane_work(a, plies, len(got), a[7]))[0]
+        else:
+            # bytes of the inputs and outputs, OPS_PER_CELL a cell
+            cells_in = (a[-1] if name in ("flood", "chain_labels") else a[0]).numel()
+            b_ms = bound(tensor_bytes(torch, (a, got)), OPS_PER_CELL * cells_in)[0]
+        k = kernel_spy.kept[(name, size)]
+        sp_shapes.setdefault(name, []).append(
+            {"boards": size, "launches": n_launch, "inputs_of_launch": k, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err})
+        print(f"{name} at {size} {'lanes' if name.startswith('run_') else 'boards'} "
+              f"(self-play): {n_launch} launches, the inputs of launch {k} (about move "
+              f"{round(rnd['moves'] * k / n_launch)} of {rnd['moves']}): {cells} outputs "
+              f"equal the plain version, kernel {ms:.4f} ms, plain on card "
+              f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms  [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    phase_done("self-play")
+
     # ---- result ----
     kernels = []
     for name, src, replaces in (
@@ -998,6 +1217,8 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "selfplay_launches": sp_launches[name],
+            "selfplay_by_shape": sp_shapes.get(name, []),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))

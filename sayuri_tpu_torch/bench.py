@@ -22,6 +22,16 @@ times (default 64) through ``GoEnv.step_batch_light`` (one light step
 kernel launch a step), each move the legal cell of highest integer hash,
 chained on the card; prints ONE JSON line, ``env_steps_per_s_19x19``.
 
+    python -m sayuri_tpu_torch.bench selfplay [batch] [moves]
+
+times the self-play actor at 19x19 with the b6c96 net (seeded random
+weights, bf16): the search and playout caps of
+configs/selfplay-gumbel-p150.txt (150/50 playouts, playout caps at
+probability 0.75, Gumbel, NN cache of 512 sets, max_nodes = playouts +
+32), tree reuse, `batch` games (default 256) from empty boards for
+`moves` moves (default 8) after a one-move warm-up; prints ONE JSON line
+with moves/s (lane-moves) and kept positions/s.
+
     python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
 
 times the board and ladder kernels built from another csrc/ tree (an
@@ -39,12 +49,14 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 from torch.profiler import record_function
 
 METRIC = "mcts_playouts_per_s_19x19_b6c96"
 ENV_METRIC = "env_steps_per_s_19x19"
+SELFPLAY_METRIC = "selfplay_positions_per_s_19x19_b6c96"
 _M32 = 0xFFFFFFFF
 
 
@@ -87,7 +99,7 @@ def _searcher(mcts, states, playouts):
         with record_function("mcts.ladders"):
             ctx = {"ladders": ladder_planes_batch(states.stones, states.size,
                                                   states.ko)}
-        return mcts.run(mcts.init_tree(states, ctx), playouts, ctx)
+        return mcts.run(mcts.init_tree(states, ctx=ctx), playouts, ctx=ctx)
 
     return search
 
@@ -173,6 +185,57 @@ def bench_env_steps(batch: int = 4096, steps: int = 64, device="cuda",
     dt = time.monotonic() - t0
     return {"rate": iters * batch * steps / dt, "seconds": dt,
             "rollouts": 1 + iters, "states": out}
+
+
+SELFPLAY_CONFIG = Path(__file__).resolve().parents[1] / "configs" / "selfplay-gumbel-p150.txt"
+
+
+def _selfplay_setup(batch: int, device="cuda", seed: int = 0, **over):
+    """(actor, root states): the search and playout caps of
+    configs/selfplay-gumbel-p150.txt (`over` replaces options of that file,
+    e.g. nn_cache_size=0) on the b6c96 net (seeded random weights, bf16 on
+    the card), `batch` empty 19x19 boards."""
+    from sayuri_tpu_torch.config import Options
+    from sayuri_tpu_torch.game.state import GoEnv
+    from sayuri_tpu_torch.mcts.core import MCTS
+    from sayuri_tpu_torch.models.evaluator import make_eval_fn
+    from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+    from sayuri_tpu_torch.selfplay.actor import SelfplayActor
+
+    opts = Options().parse_args(["--config", str(SELFPLAY_CONFIG)])
+    for name, value in over.items():
+        opts.set(name, value)
+    env = GoEnv(n=19)
+    net = SayuriNet(NetConfig(boardsize=19)).init_random(seed).to(device).eval()
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    eval_fn = make_eval_fn(env, net, symmetry="random", ladder_mode="root",
+                           compute_dtype=dtype)
+    actor = SelfplayActor(env, MCTS(env, eval_fn, opts.search_config()),
+                          opts.selfplay_config())
+    return actor, env.new_batch(batch, komi=7.5, device=device)
+
+
+def bench_selfplay(batch: int = 256, moves: int = 8, device="cuda", seed: int = 0, **over):
+    """Time `moves` self-play moves of `batch` games after a one-move
+    warm-up batch (`over`: see `_selfplay_setup`). Returns a dict with
+    moves/s (moves of all lanes per second), kept (full-search)
+    positions/s, the seconds, the records and the cache counters."""
+    actor, states = _selfplay_setup(batch, device, seed, **over)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    actor.play_games(states, gen, max_moves=1)
+    _sync(device)
+    t0 = time.monotonic()
+    final, records = actor.play_games(states, gen, max_moves=moves)
+    _sync(device)
+    dt = time.monotonic() - t0
+    lane_moves = sum(int(r.active.sum()) for r in records)
+    kept = sum(int((r.active & ~r.discard).sum()) for r in records)
+    return {"moves_per_s": lane_moves / dt, "positions_per_s": kept / dt,
+            "seconds": dt, "moves": len(records), "lane_moves": lane_moves,
+            "positions": kept, "records": records, "final": final,
+            "queries": actor.last_query_stats,
+            "playouts": [actor.cfg.playouts, actor.cfg.fastsearch_playouts],
+            "nn_cache_size": actor.mcts.cfg.nn_cache_size}
 
 
 def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
@@ -415,6 +478,23 @@ def main():
             "unit": "steps/s",
             "batch": batch,
             "steps": steps,
+            "device": device_info(),
+        }))
+        return
+    if args and args[0] == "selfplay":
+        batch = int(args[1]) if len(args) > 1 else 256
+        moves = int(args[2]) if len(args) > 2 else 8
+        res = bench_selfplay(batch, moves)
+        print(json.dumps({
+            "metric": SELFPLAY_METRIC,
+            "value": res["positions_per_s"],
+            "unit": "positions/s",
+            "moves_per_s": res["moves_per_s"],
+            "batch": batch,
+            "moves": moves,
+            "playouts": res["playouts"],
+            "nn_cache_size": res["nn_cache_size"],
+            "queries": res["queries"],
             "device": device_info(),
         }))
         return

@@ -15,10 +15,15 @@ for false-eye life / two-headed dragons: at most INNER_SLOTS regions per
 board get the exact border flood, and the overflow falls back to the
 unrefined eye, as in the JAX package.
 
-All functions take [B, n, n] int8 stones and a [B] (or int) size. This is
-the plain twin of the analysis kernels, so it calls the plain fixpoints
-(game/board.py ``chain_labels_plain``, ``flood_plain``) and launches no
-kernel.
+All functions take [B, n, n] int8 stones and a [B] (or int) size. The
+Benson functions are the plain twin of the analysis kernels, so they call
+the plain fixpoints (game/board.py ``chain_labels_plain``, ``flood_plain``)
+and launch no kernel. The territory helper's dead-stone removal
+(``remove_dead_stones``) and its scoring (``score_area_ownership_territory``)
+are on the self-play path: they label chains with ``chain_labels`` (the
+labels kernel for CUDA tensors) and take the score area from
+``ops.analysis.board_analysis`` (the analysis kernel for CUDA tensors, this
+module's plain twin for CPU tensors).
 """
 
 from __future__ import annotations
@@ -190,3 +195,39 @@ def score_area_ownership(stones, size):
     """[B, n, n] int64 {-1, 0, +1}: reach-area ownership overridden by each
     color's pass-alive area (area-rule score area). +1 black, -1 white."""
     return safe_and_ownership(stones, size)[1]
+
+
+def remove_dead_stones(stones, size, helper_own):
+    """[B, n, n] int8 boards with helper-marked dead strings removed: every
+    stone whose colour contradicts the territory-helper ownership
+    `helper_own` ([B, n, n] in {-1, 0, +1}, black +1) marks its whole
+    string, and marked strings are dropped. Both colours' chains are
+    labelled in one ``chain_labels`` call."""
+    n = stones.shape[-1]
+    mask = B.board_mask(size, n, stones.device)
+    black = (stones == 1) & mask
+    white = (stones == 2) & mask
+    colours = torch.stack([black, white])                 # [2, B, n, n]
+    owner = torch.tensor([-1, 1], device=stones.device).view(2, 1, 1, 1)
+    marked = colours & (helper_own.unsqueeze(0) == owner)
+    lbl = B.chain_labels(colours)
+    dead = B.gather_roots(B.scatter_any(marked, lbl), lbl) & colours
+    return torch.where(dead.any(0), torch.zeros_like(stones), stones)
+
+
+def score_ownership(stones, size):
+    """[B, n, n] int32 score-area ownership (+1 black): the analysis
+    kernel's for CUDA tensors, ``score_area_ownership`` for CPU tensors."""
+    from sayuri_tpu_torch.ops.analysis import board_analysis
+
+    b = stones.shape[0]
+    size = torch.as_tensor(size, device=stones.device).to(torch.int32)
+    size = size.expand(b).contiguous()
+    z = torch.zeros(b, dtype=torch.int32, device=stones.device)
+    return board_analysis(stones.contiguous(), size, z - 1, z)["score_ownership"]
+
+
+def score_area_ownership_territory(stones, size, helper_own):
+    """Territory-rule score area: remove helper-marked dead strings, then
+    score the cleaned board under the area rule. [B, n, n] int32."""
+    return score_ownership(remove_dead_stones(stones, size, helper_own), size)

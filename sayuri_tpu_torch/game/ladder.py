@@ -29,7 +29,7 @@ import torch
 from sayuri_tpu_torch.game import board as B
 from sayuri_tpu_torch.game.types import C_BLACK, C_WHITE, NO_VERTEX
 from sayuri_tpu_torch.ops import ladder_kernel as LK
-from sayuri_tpu_torch.ops.analysis import ladder_prep, ladder_prep_plain
+from sayuri_tpu_torch.ops import analysis as TA
 
 # ladder classification results (shared with ops/ladder_kernel.py)
 UNDECIDED = LK.UNDECIDED
@@ -77,7 +77,7 @@ def _prep_candidates(stones, size, ko, M=None):
     dict of _extract_candidates."""
     if M is None:
         M = max_chains(stones.shape[-1])
-    prep = ladder_prep_plain(stones, size, ko)
+    prep = TA.ladder_prep_plain(stones, size, ko)
     return dict(_extract_candidates(prep, stones, M), labels=prep["labels"])
 
 
@@ -89,7 +89,7 @@ def chase_lanes(stones, size, ko):
     the lanes to search."""
     b, n = stones.shape[0], stones.shape[-1]
     M = max_chains(n)
-    prep = ladder_prep(stones, size, ko)
+    prep = TA.ladder_prep(stones, size, ko)
     c = _extract_candidates(prep, stones, M)
     cand_v, nlibs, l1, l2 = c["cand_v"], c["nlibs"], c["l1"], c["l2"]
     valid = cand_v >= 0

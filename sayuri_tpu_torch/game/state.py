@@ -259,14 +259,43 @@ class GoEnv:
         board (pass-alive / pass-dead areas over the reach ownership),
         minus komi with penalty. The score-area ownership is the analysis
         kernel's on the card, its plain twin on the CPU. Territory-rule
-        games get no dead-stone removal here (the *_with_helper scoring is
-        not ported)."""
+        games get no dead-stone removal here (see final_score_with_helper)."""
         from sayuri_tpu_torch.ops.analysis import board_analysis
 
         sown = board_analysis(states.stones, states.size, states.ko,
                               states.to_move)["score_ownership"]
         board_score = sown.flatten(1).sum(-1).to(torch.float32)
         return board_score - self.komi_with_penalty(states)
+
+    def _helper_cleaned(self, states: GoState, helper_own):
+        """Stones with the territory helper's dead strings removed on
+        territory-rule lanes; area-rule lanes keep their board."""
+        from sayuri_tpu_torch.game import analysis as GA
+
+        cleaned = GA.remove_dead_stones(states.stones, states.size, helper_own)
+        area = (states.rule == AREA_RULE)[:, None, None]
+        return torch.where(area, states.stones, cleaned)
+
+    def final_score_with_helper(self, states: GoState, helper_own) -> torch.Tensor:
+        """[B] float32 black-minus-white final score honouring the
+        territory helper (`helper_own` [B, n, n] in {-1, 0, +1} from the
+        area-rule playout): on territory-rule lanes the strings it
+        contradicts are removed before area scoring. The score area of the
+        cleaned board is the analysis kernel's on the card."""
+        from sayuri_tpu_torch.game import analysis as GA
+
+        sown = GA.score_ownership(self._helper_cleaned(states, helper_own),
+                                  states.size)
+        board_score = sown.flatten(1).sum(-1).to(torch.float32)
+        return board_score - self.komi_with_penalty(states)
+
+    def ownership_with_helper(self, states: GoState, helper_own) -> torch.Tensor:
+        """[B, n, n] int32 score-area ownership honouring the territory
+        helper (as final_score_with_helper)."""
+        from sayuri_tpu_torch.game import analysis as GA
+
+        return GA.score_ownership(self._helper_cleaned(states, helper_own),
+                                  states.size)
 
     def ownership(self, states: GoState) -> torch.Tensor:
         """[B, n, n] int64 Tromp-Taylor area ownership (+1 black)."""

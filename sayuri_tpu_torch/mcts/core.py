@@ -15,11 +15,19 @@ host sync. The descent is a Python loop that syncs once per depth level.
 Ported search semantics: PUCT with FPU reduction, dynamic cpuct scaled by
 the child value variance, log-growth cpuct, the score-utility term
 E[atan((s - center)/(div*bsize))]*2/pi by Gauss-Hermite quadrature, forced
-playouts at the root, Welford variance for WL and score, terminal
-two-pass leaves valued by the final score, exact-tie PUCT resolution to
-the highest prior, and LCB best-move selection. Dirichlet noise, Gumbel
-root selection, the NN cache, the first-pass bonus and tree reuse are not
-ported yet.
+playouts at the root, Dirichlet root noise, Gumbel / Sequential-Halving
+root selection (mcts/gumbel.py), per-lane playout budgets (lanes past
+their budget are frozen), the shared NN evaluation cache
+(mcts/nncache.py), tree reuse across moves (``advance_root``), Welford
+variance for WL and score, terminal two-pass leaves valued by the final
+score, exact-tie PUCT resolution to the highest prior, and LCB best-move
+selection with the self-play forbid-pass mask. The first-pass bonus and
+the Tromp-Taylor terminal scoring switch are not ported yet.
+
+Random draws (Dirichlet noise, Gumbel noise) come from the
+``torch.Generator`` handed to ``init_tree``, kept in the tree: the JAX
+package folds threefry keys by simulation index instead, so the two give
+different numbers for the same seed.
 """
 
 from __future__ import annotations
@@ -69,18 +77,34 @@ class SearchConfig:
     score_utility_factor: float = 0.4
     score_utility_div: float = 1.0
     forced_playouts_k: float = 0.0
+    # noise / exploration
+    dirichlet_noise: bool = False
+    dirichlet_epsilon: float = 0.25
+    dirichlet_init: float = 0.03
+    dirichlet_factor: float = 361.0
+    # Gumbel root
+    gumbel: bool = False
+    gumbel_c_visit: float = 50.0
+    gumbel_c_scale: float = 1.0
+    gumbel_considered_moves: int = 16
+    gumbel_prom_visits: int = 1
+    gumbel_playouts_threshold: int = 400
     # LCB best-move selection
     lcb_reduction: float = 0.02
     ci_alpha: float = 1e-5
+    # NN eval cache sets (2 ways each, shared by all lanes); 0 disables
+    nn_cache_size: int = 0
 
 
 @dataclasses.dataclass
 class Tree:
-    """Forest of B trees; node 0 of each tree is its root and node
-    ``max_nodes`` is the scratch row."""
+    """Forest of B trees; node 0 of each tree is its root (tree reuse
+    re-roots by copying the kept subtree forward) and node ``max_nodes`` is
+    the scratch row."""
 
     prior: torch.Tensor          # [B, N+1, A] f32, 0 for illegal actions
     child: torch.Tensor          # [B, N+1, A] int64 node index or -1
+    parent: torch.Tensor         # [B, N+1] int64 (-1 for the root)
     # packed per-node stats [B, N+1, 8] f32:
     #   0 visits, 1 acc_wl (black), 2 acc_draw, 3 acc_score (black),
     #   4 sq_eval_diff, 5 sq_score_diff (Welford), 6 score_eval cache
@@ -89,12 +113,21 @@ class Tree:
     terminal: torch.Tensor       # [B, N+1] bool
     states: GoState              # per-node states, leading dims [B, N+1]
     next_free: torch.Tensor      # [B] int64
+    root_noise: torch.Tensor     # [B, A] Dirichlet noise
     root_ownership: torch.Tensor  # [B, HW] running average
     score_center: torch.Tensor   # [B] frozen score-utility center
+    use_noise: torch.Tensor      # [B] bool per-lane Dirichlet switch
+    use_gumbel: torch.Tensor     # [B] bool per-lane Gumbel switch
+    cache: Any = None            # mcts/nncache.NNCache or None
+    gen: Any = None              # torch.Generator of the search's draws
 
     @property
     def visits(self):
         return self.stats[..., 0].to(torch.int32)
+
+    @property
+    def num_actions(self) -> int:
+        return self.prior.shape[-1]
 
 
 # Gauss-Hermite nodes/weights for E[f(mean + stddev*Z)], Z ~ N(0,1)
@@ -159,14 +192,34 @@ class MCTS:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def init_tree(self, root_states: GoState, ctx=None) -> Tree:
-        """Evaluate the roots and build a fresh forest."""
+    def init_tree(self, root_states: GoState, gen=None, use_noise=None,
+                  use_gumbel=None, prior_mask=None, ctx=None, cache=None) -> Tree:
+        """Evaluate the roots and build a fresh forest. `gen`: the
+        torch.Generator of the search's draws (a fresh one seeded 0 when
+        None). `use_noise` / `use_gumbel`: [B] bool per-lane overrides of the
+        config flags (fast-search lanes explore with neither). `prior_mask`
+        ([B, A] bool) zeroes root priors (the root superko purge) and
+        renormalizes. `cache`: the NN cache to evaluate through (a new one
+        when None and cfg.nn_cache_size > 0)."""
+        from sayuri_tpu_torch.mcts import nncache as NC
+
         cfg = self.cfg
         b = root_states.stones.shape[0]
         dev = root_states.stones.device
         rows, A = cfg.max_nodes + 1, self.A
+        if gen is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
 
-        evals = self.eval_fn(root_states, ctx)
+        if cache is None and cfg.nn_cache_size > 0:
+            cache = NC.make_cache(b, cfg.nn_cache_size, A, self.env.n ** 2, device=dev)
+        if cache is not None:
+            evals, cache = NC.cached_eval(cache, self.eval_fn, root_states, ctx)
+        else:
+            evals = self.eval_fn(root_states, ctx)
+        if prior_mask is not None:
+            priors = torch.where(prior_mask, evals.priors, 0.0)
+            priors = priors / priors.sum(-1, keepdim=True).clamp(min=1e-12)
+            evals = evals._replace(priors=priors)
 
         # tree nodes never consult the superko ring: keep a length-1 stub
         slim = root_states.replace(hash_history=root_states.hash_history[:, :1])
@@ -176,6 +229,7 @@ class MCTS:
             buf[:, 0] = x
             return buf
 
+        noise = self._sample_dirichlet(gen, evals.priors)
         root_se = expected_score_value(
             evals.black_score, torch.ones_like(evals.black_score),
             evals.black_score, cfg.score_utility_div, float(self.env.n),
@@ -191,16 +245,40 @@ class MCTS:
         prior[:, 0] = evals.priors
         terminal = torch.zeros((b, rows), dtype=torch.bool, device=dev)
         terminal[:, 0] = root_states.terminated
+
+        def lane_flag(flag, default):
+            if flag is None:
+                return torch.full((b,), default, dtype=torch.bool, device=dev)
+            return flag.to(device=dev, dtype=torch.bool)
+
         return Tree(
             prior=prior,
             child=torch.full((b, rows, A), -1, dtype=torch.int64, device=dev),
+            parent=torch.full((b, rows), -1, dtype=torch.int64, device=dev),
             stats=stats,
             terminal=terminal,
             states=slim.map(node_buf),
             next_free=torch.ones((b,), dtype=torch.int64, device=dev),
+            root_noise=noise,
             root_ownership=evals.black_ownership.clone(),
             score_center=evals.black_score.clone(),
+            use_noise=lane_flag(use_noise, cfg.dirichlet_noise),
+            use_gumbel=lane_flag(use_gumbel, cfg.gumbel),
+            cache=cache,
+            gen=gen,
         )
+
+    def _sample_dirichlet(self, gen, priors):
+        """[B, A] root Dirichlet buffer: alpha = dirichlet_init *
+        dirichlet_factor / (number of legal moves) over the legal moves."""
+        cfg = self.cfg
+        if not cfg.dirichlet_noise:
+            return torch.zeros_like(priors)
+        legal = priors > 0
+        num_legal = legal.sum(-1, keepdim=True).clamp(min=1)
+        alpha = (cfg.dirichlet_init * cfg.dirichlet_factor / num_legal).expand_as(priors)
+        g = torch.where(legal, sample_gamma(alpha, gen), 0.0)
+        return g / g.sum(-1, keepdim=True).clamp(min=1e-12)
 
     # ------------------------------------------------------------------
     # selection
@@ -279,6 +357,16 @@ class MCTS:
             )))
             q = q + torch.where(visited & (forced_n > nv), (forced_n - nv) * 1e6, 0.0)
 
+        # policy with root noise
+        if cfg.dirichlet_noise and is_root:
+            psa = torch.where(
+                tree.use_noise[:, None],
+                p_raw * (1 - cfg.dirichlet_epsilon) + cfg.dirichlet_epsilon * tree.root_noise,
+                p_raw,
+            )
+        else:
+            psa = p_raw
+
         cpuct = cfg.cpuct_init + cfg.cpuct_base_factor * torch.log(
             (cv + cfg.cpuct_base + 1.0) / cfg.cpuct_base
         )
@@ -291,7 +379,7 @@ class MCTS:
             cpuct_a = cpuct[:, None].expand_as(p_raw)
 
         numerator = torch.sqrt(cv)
-        puct = cpuct_a * p_raw * (numerator[:, None] / (1.0 + nv))
+        puct = cpuct_a * psa * (numerator[:, None] / (1.0 + nv))
         return torch.where(legal, q + puct, -torch.inf)
 
     @staticmethod
@@ -302,13 +390,21 @@ class MCTS:
         m = scores.max(-1, keepdim=True).values
         return torch.where(scores >= m, priors, -torch.inf).argmax(-1)
 
-    def _select_action(self, tree, node_idx, is_root, color=None):
+    def _select_action(self, tree, node_idx, is_root, sim_idx=None, color=None):
+        """PUCT everywhere; the Gumbel-SH root selection at the root of the
+        lanes with use_gumbel (PUCT where its budget is exhausted)."""
         scores = self._puct_scores(tree, node_idx, is_root, color=color)
         if node_idx is None:
             priors = tree.prior[:, 0]
         else:
             b_idx = torch.arange(scores.shape[0], device=scores.device)
             priors = tree.prior[b_idx, node_idx]
+        if self.cfg.gumbel and is_root:
+            from sayuri_tpu_torch.mcts import gumbel as G
+
+            g_scores = G.root_scores(self, tree, sim_idx=sim_idx)
+            g_ok = torch.isfinite(g_scores).any(-1)
+            scores = torch.where((tree.use_gumbel & g_ok)[:, None], g_scores, scores)
         return self._argmax_prior_tiebreak(scores, priors)
 
     # ------------------------------------------------------------------
@@ -316,26 +412,39 @@ class MCTS:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def simulate(self, tree: Tree, ctx=None) -> Tree:
+    def simulate(self, tree: Tree, sim_idx=0, active=None, ctx=None) -> Tree:
         """One playout per tree; updates `tree` in place and returns it.
+        `sim_idx` tags the simulation (its Gumbel draw); `active` ([B]
+        bool, all when None): lanes past their playout budget are frozen.
         Each stage is a named profiler range (`mcts.*`)."""
+        from sayuri_tpu_torch.mcts import nncache as NC
+
         b_idx = torch.arange(tree.stats.shape[0], device=tree.stats.device)
+        if active is None:
+            active = torch.ones_like(tree.terminal[:, 0])
         with record_function("mcts.descent"):
-            path, leaf_parent, leaf_action = self._descend(tree, b_idx)
+            path, leaf_parent, leaf_action = self._descend(tree, b_idx, sim_idx)
         with record_function("mcts.step_analysis"):
             parent_states = tree.states.map(lambda x: x[b_idx, leaf_parent])
             child_states, analysis = self.env.step_batch_with_analysis(
                 parent_states, leaf_action
             )
         with record_function("mcts.evaluate"):
-            evals = self.eval_fn(child_states, dict(ctx or {}, analysis=analysis))
+            eval_ctx = dict(ctx or {}, analysis=analysis)
+            if tree.cache is not None:
+                evals, tree.cache = NC.cached_eval(
+                    tree.cache, self.eval_fn, child_states, eval_ctx,
+                    live=active & ~child_states.terminated,
+                )
+            else:
+                evals = self.eval_fn(child_states, eval_ctx)
             leaf = self._leaf_values(child_states, analysis, evals)
         with record_function("mcts.expand_backup"):
             self._expand_backup(tree, b_idx, path, leaf_parent, leaf_action,
-                                child_states, evals, leaf)
+                                child_states, evals, leaf, active)
         return tree
 
-    def _descend(self, tree, b_idx):
+    def _descend(self, tree, b_idx, sim_idx=None):
         """PUCT descent for every lane; depth 0 is hoisted (every lane is at
         the root there). Returns (path [B, D], leaf parent, leaf action)."""
         cfg = self.cfg
@@ -343,7 +452,7 @@ class MCTS:
         path = torch.full((b, cfg.max_depth), -1, dtype=torch.int64, device=dev)
         path_a = path.clone()
         done = tree.terminal[:, 0]
-        a0 = self._select_action(tree, None, True)
+        a0 = self._select_action(tree, None, True, sim_idx)
         path[:, 0] = torch.where(done, -1, 0)
         path_a[:, 0] = torch.where(done, -1, a0)
         child0 = tree.child[b_idx, 0, a0]
@@ -389,10 +498,10 @@ class MCTS:
         return black_wl, black_score, black_own, draw
 
     def _expand_backup(self, tree, b_idx, path, leaf_parent, leaf_action,
-                       child_states, evals, leaf):
-        """Expand the leaf (unless the child exists, the tree is full or the
-        root is terminal), then back up along the path + the leaf with one
-        gather and one scatter."""
+                       child_states, evals, leaf, active):
+        """Expand the leaf (unless the child exists, the tree is full, the
+        root is terminal or the lane is frozen), then back up along the path
+        + the leaf with one gather and one scatter."""
         cfg = self.cfg
         n_nodes = cfg.max_nodes
         black_wl, black_score, black_own, draw = leaf
@@ -400,7 +509,7 @@ class MCTS:
         existing_child = tree.child[b_idx, leaf_parent, leaf_action]
         new_idx = tree.next_free
         reuse_root = tree.terminal[:, 0]
-        can_expand = (existing_child < 0) & (new_idx < n_nodes) & ~reuse_root
+        can_expand = (existing_child < 0) & (new_idx < n_nodes) & ~reuse_root & active
         node_for_stats = torch.where(
             existing_child >= 0, existing_child, new_idx.clamp(max=n_nodes - 1)
         )
@@ -412,6 +521,7 @@ class MCTS:
         tree.child[b_idx, leaf_parent, leaf_action] = torch.where(
             can_expand, node_for_stats, existing_child
         )
+        tree.parent[b_idx, exp_idx] = leaf_parent
         tree.stats[b_idx, exp_idx, 7] = black_wl
         tree.terminal[b_idx, exp_idx] = term
         for name, buf in tree.states.fields().items():
@@ -419,16 +529,16 @@ class MCTS:
         tree.next_free = tree.next_free + can_expand.to(torch.int64)
 
         # ---- backup along path + the leaf: one gather + one scatter ----
-        leaf_ok = (can_expand | (existing_child >= 0)) & ~reuse_root
+        leaf_ok = (can_expand | (existing_child >= 0)) & ~reuse_root & active
         upd_idx = torch.cat(
             [
                 path,
                 torch.where(leaf_ok, node_for_stats, -1)[:, None],
-                torch.where(reuse_root, 0, -1)[:, None],
+                torch.where(reuse_root & active, 0, -1)[:, None],
             ],
             1,
         )                                                 # [B, D+2]
-        ok = upd_idx >= 0
+        ok = (upd_idx >= 0) & active[:, None]
         idx_safe = upd_idx.clamp(min=0)
         bb = b_idx[:, None].expand_as(idx_safe)
 
@@ -476,15 +586,128 @@ class MCTS:
 
         # root ownership running average
         rv = tree.stats[:, 0, 0]
-        tree.root_ownership = (
-            tree.root_ownership + (black_own - tree.root_ownership) / rv[:, None]
+        tree.root_ownership = torch.where(
+            active[:, None],
+            tree.root_ownership + (black_own - tree.root_ownership) / rv[:, None],
+            tree.root_ownership,
         )
 
-    def run(self, tree: Tree, num_sims: int, ctx=None) -> Tree:
-        """Run `num_sims` lockstep simulations."""
-        for _ in range(num_sims):
-            tree = self.simulate(tree, ctx)
+    def run(self, tree: Tree, num_sims: int, budget=None, ctx=None) -> Tree:
+        """Run `num_sims` lockstep simulations. `budget` ([B] int) caps the
+        playouts of each lane: simulation i runs on the lanes with i <
+        budget (a device compare, no host sync)."""
+        for i in range(num_sims):
+            active = None if budget is None else i < budget
+            tree = self.simulate(tree, i, active, ctx)
         return tree
+
+    # ------------------------------------------------------------------
+    # tree reuse across moves
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def advance_root(self, tree: Tree, actions, new_root_states: GoState,
+                     gen=None, use_noise=None, use_gumbel=None, prior_mask=None,
+                     ctx=None):
+        """Re-root each tree at the chosen move's child and compact the
+        kept subtree to the front of the node arrays; lanes whose child was
+        never expanded (or whose root was terminal) get a fresh tree.
+        Membership is pointer doubling over the parent array, the
+        compaction a prefix-sum renumbering in old-index order (new root
+        first) and one scatter per array, as in the JAX package, so the
+        re-rooted tree equals the JAX tree array for array. Returns
+        (tree, has_reuse [B] bool)."""
+        cfg = self.cfg
+        n_nodes = cfg.max_nodes
+        b = tree.stats.shape[0]
+        dev = tree.stats.device
+        b_idx = torch.arange(b, device=dev)
+        bb = b_idx[:, None]
+        nodes = torch.arange(n_nodes, device=dev)[None, :]
+        actions = actions.to(torch.int64)
+
+        new_root = tree.child[b_idx, 0, actions]              # -1 = none
+        has_reuse = (new_root >= 0) & ~tree.terminal[:, 0]
+        root_safe = new_root.clamp(min=0)[:, None]
+
+        # membership via pointer doubling over parents (roots self-loop)
+        parent = tree.parent[:, :n_nodes]
+        in_sub = nodes == root_safe
+        anc = torch.where(parent >= 0, parent, nodes)
+        steps = max(1, int(np.ceil(np.log2(max(cfg.max_depth, 2))))) + 1
+        for _ in range(steps):
+            in_sub = in_sub | in_sub.gather(1, anc)
+            anc = anc.gather(1, anc)
+        in_sub = in_sub & (nodes < tree.next_free[:, None])
+
+        # renumber: new root -> 0, the others by old-index rank; the rest
+        # goes to the scratch row
+        is_other = in_sub & (nodes != root_safe)
+        rank = torch.cumsum(is_other.to(torch.int64), 1)
+        new_id = torch.where(nodes == root_safe, 0, rank)
+        new_id = torch.where(in_sub, new_id, n_nodes)
+        count = 1 + rank[:, -1]
+        lookup = torch.cat([new_id, torch.full((b, 1), n_nodes, device=dev,
+                                                dtype=torch.int64)], 1)
+
+        def remap(c):
+            """old child/parent index -> new index (-1 preserved)."""
+            mapped = lookup.gather(1, c.clamp(min=0).reshape(b, -1)).reshape(c.shape)
+            return torch.where((c >= 0) & (mapped < n_nodes), mapped, -1)
+
+        def compact(arr, fill=0):
+            out = torch.full_like(arr, fill)
+            out[bb, new_id] = arr[:, :n_nodes]
+            return out
+
+        child = compact(tree.child, -1)
+        child[bb, new_id] = remap(tree.child[:, :n_nodes])
+        parent = compact(tree.parent, -1)
+        parent[bb, new_id] = remap(tree.parent[:, :n_nodes])
+        parent[:, 0] = -1
+        reused = dataclasses.replace(
+            tree,
+            prior=compact(tree.prior),
+            child=child,
+            parent=parent,
+            stats=compact(tree.stats),
+            terminal=compact(tree.terminal),
+            states=tree.states.map(compact),
+            next_free=count,
+        )
+
+        # a fresh tree for every lane (it also brings the new root evals
+        # and noise); the cache rides through it
+        fresh = self.init_tree(new_root_states, gen if gen is not None else tree.gen,
+                               use_noise=use_noise, use_gumbel=use_gumbel,
+                               prior_mask=prior_mask, ctx=ctx, cache=tree.cache)
+
+        # reused lanes: the authoritative root state, the fresh root priors
+        # (a reused root was expanded as a leaf), fresh noise and flags
+        slim = new_root_states.replace(hash_history=new_root_states.hash_history[:, :1])
+        for name, buf in reused.states.fields().items():
+            buf[:, 0] = getattr(slim, name)
+        reused.prior[:, 0] = fresh.prior[:, 0]
+        if prior_mask is not None:
+            pri = torch.where(prior_mask, reused.prior[:, 0], 0.0)
+            reused.prior[:, 0] = pri / pri.sum(-1, keepdim=True).clamp(min=1e-12)
+        for name in ("root_noise", "use_noise", "use_gumbel", "root_ownership"):
+            setattr(reused, name, getattr(fresh, name))
+
+        def pick(r, f):
+            return torch.where(has_reuse.view((b,) + (1,) * (r.ndim - 1)), r, f)
+
+        merged = {f.name: pick(getattr(reused, f.name), getattr(fresh, f.name))
+                  for f in dataclasses.fields(Tree)
+                  if f.name not in ("states", "cache", "gen")}
+        out = Tree(**merged,
+                   states=GoState(**{k: pick(v, getattr(fresh.states, k))
+                                     for k, v in reused.states.fields().items()}),
+                   cache=fresh.cache, gen=fresh.gen)
+        # freeze the score-utility center after the merge: reused roots
+        # carry the previous search's estimate
+        out.score_center = out.stats[:, 0, 3] / out.stats[:, 0, 0].clamp(min=1.0)
+        return out, has_reuse
 
     # ------------------------------------------------------------------
     # results
@@ -494,6 +717,14 @@ class MCTS:
         """[B, A] visit counts of root children."""
         g, _ = self._child_stats(tree)
         return g[..., 0].to(torch.int32)
+
+    def root_child_q(self, tree: Tree, color) -> torch.Tensor:
+        """[B, A] mean child values in `color` perspective; unvisited 0."""
+        g, _ = self._child_stats(tree)
+        nv = g[..., 0]
+        wl_b = g[..., 1] / nv.clamp(min=1.0)
+        wl = torch.where(color[:, None] == 0, wl_b, 1.0 - wl_b)
+        return torch.where(nv > 0, wl, 0.0)
 
     def root_lcb_scores(self, tree: Tree) -> torch.Tensor:
         """[B, A] LCB utility per root child: lcb = mean - z*stddev/visits
@@ -520,12 +751,57 @@ class MCTS:
         rlcb = torch.where(visits <= 1, tree.prior[:, 0] - 1e6, rlcb)
         return torch.where(visits > 0, rlcb, -torch.inf)
 
-    def best_move(self, tree: Tree) -> torch.Tensor:
+    def best_move(self, tree: Tree, allow_pass=None) -> torch.Tensor:
         """[B] argmax of the LCB utility over visited children; the raw
-        prior's argmax when nothing is visited."""
+        prior's argmax when nothing is visited. `allow_pass` ([B] bool):
+        where False, pass is kept only if it is the sole visited move (the
+        self-play forbid-pass rule)."""
         visits = self.root_child_visits(tree)
         score = self.root_lcb_scores(tree)
+        if allow_pass is not None:
+            pass_a = tree.num_actions - 1
+            has_other = (visits[:, :pass_a] > 0).any(-1)
+            kill = ~allow_pass & has_other
+            score = score.clone()
+            visits = visits.clone()
+            score[:, pass_a] = torch.where(kill, -torch.inf, score[:, pass_a])
+            visits[:, pass_a] = torch.where(kill, 0, visits[:, pass_a])
         any_visited = (visits > 0).any(-1)
         best_lcb = score.argmax(-1)
         best_prior = tree.prior[:, 0].argmax(-1)
         return torch.where(any_visited, best_lcb, best_prior)
+
+
+def sample_gumbel(shape, gen):
+    """Standard Gumbel noise from `gen` (on the generator's device)."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return -torch.log(-torch.log(u.clamp(min=1e-20)))
+
+
+_GAMMA_ROUNDS = 16
+
+
+def sample_gamma(alpha, gen):
+    """Gamma(alpha, 1) samples from `gen` (torch's own gamma sampler takes
+    no generator): Marsaglia-Tsang with a fixed number of rounds (each
+    accepts with probability >= 0.95 for shape >= 1, so no lane is left
+    after 16 rounds but with probability < 1e-20; such a lane keeps the
+    mode), no host sync; shape < 1 through the boost G(a) = G(a + 1) *
+    U^(1/a)."""
+    a1 = torch.where(alpha < 1.0, alpha + 1.0, alpha)
+    d = a1 - 1.0 / 3.0
+    c = torch.rsqrt(9.0 * d)
+    out = d.clone()
+    done = torch.zeros_like(alpha, dtype=torch.bool)
+    for _ in range(_GAMMA_ROUNDS):
+        x = torch.randn(alpha.shape, generator=gen, device=gen.device)
+        u = torch.rand(alpha.shape, generator=gen, device=gen.device)
+        v = (1.0 + c * x) ** 3
+        vs = v.clamp(min=1e-30)
+        ok = (v > 0) & (torch.log(u.clamp(min=1e-30))
+                        < 0.5 * x * x + d - d * vs + d * torch.log(vs))
+        out = torch.where(ok & ~done, d * vs, out)
+        done = done | ok
+    u = torch.rand(alpha.shape, generator=gen, device=gen.device)
+    boost = torch.where(alpha < 1.0, u.clamp(min=1e-30) ** (1.0 / alpha), 1.0)
+    return out * boost

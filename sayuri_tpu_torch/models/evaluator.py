@@ -29,7 +29,7 @@ from sayuri_tpu_torch.mcts.core import NetEvals
 from sayuri_tpu_torch.models import symmetry as S
 from sayuri_tpu_torch.models.encoder import encode
 from sayuri_tpu_torch.models.network import SayuriNet
-from sayuri_tpu_torch.ops.analysis import board_analysis
+from sayuri_tpu_torch.ops import analysis as TA
 
 
 # pass leaves the priors while more than (1 - factor) * size^2 legal board
@@ -84,7 +84,7 @@ def make_eval_fn(
         if ctx is not None and "analysis" in ctx:
             analysis = ctx["analysis"]
         else:
-            analysis = board_analysis(states.stones, states.size, states.ko,
+            analysis = TA.board_analysis(states.stones, states.size, states.ko,
                                       states.to_move)
         planes = encode(env, states, lp, analysis["libs"], analysis["safe"],
                         analysis["score_ownership"])

@@ -9,9 +9,10 @@ sayuri_tpu.selfplay.randomize).
   temperature, floor 0.8
 - handicap stones are policy-sampled at temp 0.8 without alternating
 - unfair komi jitter ~ N(0, sigma) with a big-sigma tail; all komi
-  quantized to the nearest half point (`adjust_komi`). The JAX package's
-  optional fair-komi search waits for the self-play actor, its only
-  caller.
+  quantized to the nearest half point (`adjust_komi`)
+- fair komi: handicap and opening lanes move their komi by the score lead
+  an optional quick search finds (`fair_komi_search`, which the self-play
+  pipe passes) before the jitter
 
 The host-side draws (sizes, komi, rules, handicaps, opening lengths,
 jitter) come from ``np.random.default_rng(seed)`` in the JAX package's
@@ -102,10 +103,13 @@ def _where_state(flag, new: GoState, old: GoState) -> GoState:
 class GameRandomizer:
     """Prepares a batch of randomized starting positions."""
 
-    def __init__(self, env: GoEnv, dist: GameDistribution, eval_fn):
+    def __init__(self, env: GoEnv, dist: GameDistribution, eval_fn,
+                 fair_komi_search=None):
         self.env = env
         self.dist = dist
         self.eval_fn = eval_fn
+        # optional callable(states) -> [B] side-to-move score lead
+        self.fair_komi_search = fair_komi_search
 
     @torch.no_grad()
     def _policy_step(self, states: GoState, gen: torch.Generator, temp: float,
@@ -181,6 +185,17 @@ class GameRandomizer:
             temp = np.maximum(dist.random_opening_temp * np.exp(-lam * i), 0.8)
             stepped = self._policy_step(states, gen, float(np.float32(temp.mean())), -1)
             states = _where_state(lanes(open_moves > i, torch.bool), stepped, states)
+
+        # fair komi for handicap / opening lanes
+        need_fair = (handicaps > 0) | (open_moves > 0)
+        if need_fair.any() and self.fair_komi_search is not None:
+            lead_stm = self.fair_komi_search(states).cpu().numpy()
+            to_move = states.to_move.cpu().numpy()
+            lead_black = np.where(to_move == 0, lead_stm, -lead_stm)
+            new_komi = adjust_komi(lanes(np.where(need_fair, komis + lead_black, komis),
+                                         torch.float32))
+            states = states.replace(komi=new_komi)
+            komis = new_komi.cpu().numpy()
 
         # unfair komi jitter; handicap games keep fair komi with prob
         # handicap_fair_komi_prob

@@ -204,3 +204,43 @@ def test_fixpoint_wrappers_reject_wrong_input(cuda):
     masks = torch.zeros((2, 9, 9), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="seed"):
         FK.flood(masks[:1], masks)
+
+
+def test_selfplay_round_on_card(cuda):
+    """A short self-play round on the card (9x9, B=16, the config's search
+    features at 8/4 playouts, a small random net): every kernel of the
+    self-play path launched, every recorded move legal, the targets and
+    the chunk text well formed."""
+    from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
+    from sayuri_tpu_torch.models.evaluator import make_eval_fn
+    from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+    from sayuri_tpu_torch.selfplay import data as D
+    from sayuri_tpu_torch.selfplay.actor import SelfplayActor, SelfplayConfig, assemble_targets
+
+    env = GoEnv(n=9)
+    net = SayuriNet(NetConfig(boardsize=9, residual_channels=16,
+                              stack=("ResidualBlock-SE",))).init_random(1).to(cuda).eval()
+    mcts = MCTS(env, make_eval_fn(env, net, symmetry="random"),
+                SearchConfig(max_nodes=40, gumbel=True, nn_cache_size=64))
+    actor = SelfplayActor(env, mcts, SelfplayConfig(playouts=8, fastsearch_playouts=4))
+    states = env.new_batch(16, komi=7.5, device=cuda)
+    states = states.replace(rule=(torch.arange(16, device=cuda) % 2).to(torch.int32))
+    for m in (TA, LK, FK):
+        m.reset_launch_counts()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    final, records = actor.play_games(states, gen, max_moves=12)
+    helper = actor.territory_playout(final, gen, max_steps=3)
+    targets = assemble_targets(env, final, records, territory_helper=helper)
+    launches = {**TA.LAUNCHES, **LK.LAUNCHES, **FK.LAUNCHES}
+    for k in ("step_and_analyze", "board_analysis", "ladder_prep", "run_greedy",
+              "run_chases", "flood", "chain_labels"):
+        assert launches[k] > 0, k
+    for rec in records:
+        st = rec.states.to("cpu")
+        legal = env.legal_action_mask(st)
+        ok = legal.gather(1, rec.move.cpu().long()[:, None])[:, 0]
+        assert bool((ok | ~rec.active.cpu()).all())
+    assert all(bool(torch.isfinite(v.float()).all()) for v in targets.values())
+    text = D.games_to_text(env, records, targets)
+    for pos in (p for g in text for p in g):
+        assert pos.count("\n") == 53 and pos.startswith("2\n0\n9\n")

@@ -32,6 +32,14 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.selfplay",
     "sayuri_tpu_torch.selfplay.randomize",
     "sayuri_tpu_torch.bench",
+    "sayuri_tpu_torch.game.sgf",
+    "sayuri_tpu_torch.mcts.gumbel",
+    "sayuri_tpu_torch.mcts.nncache",
+    "sayuri_tpu_torch.selfplay.actor",
+    "sayuri_tpu_torch.selfplay.data",
+    "sayuri_tpu_torch.selfplay.pipe",
+    "sayuri_tpu_torch.config",
+    "sayuri_tpu_torch.__main__",
 ]
 
 CHECK = """

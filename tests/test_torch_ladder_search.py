@@ -53,7 +53,7 @@ def test_search_with_root_ladders_matches_jax():
     ctx = {"ladders": ladder_planes_batch(ts.stones, ts.size, ts.ko)}
     assert ctx["ladders"].sum() > 0
     np.testing.assert_array_equal(np.asarray(j_ladders), ctx["ladders"].numpy())
-    tree = tm.run(tm.init_tree(ts, ctx), PLAYOUTS, ctx)
+    tree = tm.run(tm.init_tree(ts, ctx=ctx), PLAYOUTS, ctx=ctx)
     assert (tree.visits[:, 0] == PLAYOUTS + 1).all()
     np.testing.assert_array_equal(np.asarray(j_visits),
                                   tm.root_child_visits(tree).numpy())
