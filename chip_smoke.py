@@ -86,14 +86,36 @@ no result line):
     there and timed. Then the 19x19 reading: ``bench.bench_selfplay``
     (b6c96 bf16, the config's 150/50 playouts, B=256, 8 moves after a
     one-move warm-up), moves/s and kept positions/s, with the NN cache of
-    512 sets and without it, alternated (512, 0, 0, 512).
+    512 sets, then without it.
+
+14. GTP: the GTP mode as ``python -m sayuri_tpu_torch --mode gtp --config
+    configs/gtp-p400.txt --weights F`` builds it, in-process with stdin
+    fed line by line and stdout captured, on phase 13's b6c96 v5 file
+    (bf16): name, list_commands, boardsize 19, clear_board, eight genmoves
+    alternating colours with tree reuse, play and undo, a kata-analyze
+    stream held about two seconds before the next line (an info line
+    parsed), sayuri-raw_nn avg, final_score, final_status_list dead,
+    printsgf; every answer "=", the SGF replayed legally on the CPU, each
+    genmove's seconds and the B=1 playouts/s printed. Then two 9x9 games
+    of alternating genmoves at 16 playouts (up to 100 moves or two
+    passes): the area rule with --first-pass-bonus --friendly-pass
+    --capture-all-dead --symm-pruning, and the territory rule with the
+    territory helper playout before final_score; final_score,
+    final_status_list dead, gogui-seki and printsgf answer "=", the moves
+    replay legally, the kernels' launches a simulation printed. While
+    these run, the plain functions of the kernels raise on a CUDA tensor
+    (no plain twin runs on the card's path), and a spy keeps the inputs of
+    a late launch at each shape (boards or lanes, and board width: the
+    19x19 session's one-board launches apart from the 9x9 games'): each
+    kernel is held against its plain twin and timed there. Last, ``--mode benchmark --benchmark-query
+    bg:16:32`` prints its line.
 
 Launch counters are set to 0 right before each main path (phases 5, 8-11,
-13) and read right after it. The second-to-last line is the kernels JSON (all
-eight kernels: launches on their path, max abs error against the plain
-version, kernel and plain ms, the bound, library call); the last line is
-{"ok": true, "device": {...}}. There is no CPU fallback: without a CUDA
-device the script fails.
+13, 14) and read right after it. The second-to-last line is the kernels JSON
+(all eight kernels: launches on their path, max abs error against the plain
+version, kernel and plain ms, the bound, library call; the self-play and
+GTP launches and shapes); the last line is {"ok": true, "device": {...}}.
+There is no CPU fallback: without a CUDA device the script fails.
 """
 
 import json
@@ -126,7 +148,9 @@ PLY_BOARDS = 3
 # fits the smoke) and the 19x19 reading
 SP_PLAYOUTS, SP_FAST_PLAYOUTS, SP_GAMES = 24, 8, 64
 SP_BENCH_BATCH, SP_BENCH_MOVES = 256, 8
-SP_BENCH_CACHE_SETS = (512, 0, 0, 512)   # the config's cache, then none
+# the config's cache, then none (two runs, to leave the GTP phase room in
+# the time limit)
+SP_BENCH_CACHE_SETS = (512, 0)
 
 
 def phase(name):
@@ -300,7 +324,7 @@ class LaneSpy:
 
 class KernelSpy:
     """While installed, counts the CUDA launches of all eight kernel
-    wrappers by (name, boards or lanes) and keeps a copy of the inputs of
+    wrappers by (name, boards or lanes, board width) and keeps a copy of the inputs of
     one launch of each (to check and time every kernel at the shapes a main
     path gave it): the first launch, or with `late` the last launch whose
     number at that shape is a power of two, which lies in the second half
@@ -313,7 +337,7 @@ class KernelSpy:
                                "step_and_legal")),
                          (LK, ("run_greedy", "run_chases")),
                          (FK, ("flood", "chain_labels"))]
-        self.FK = FK
+        self.FK, self.LK = FK, LK
         self.counts = {}
         self.inputs = {}
 
@@ -329,7 +353,9 @@ class KernelSpy:
                     if t.device.type == "cuda" and t.numel():
                         size = (t.numel() // (t.shape[-1] ** 2) if _mod is self.FK
                                 else t.shape[0])
-                        key = (_name, size)
+                        # the ladder searches take the width as an argument
+                        n = args[7] if _mod is self.LK else t.shape[-1]
+                        key = (_name, size, int(n))
                         k = self.counts[key] = self.counts.get(key, 0) + 1
                         if k == 1 or (self.late and k & (k - 1) == 0):
                             self.kept[key] = k
@@ -378,6 +404,301 @@ def replay_sgfs(torch, sgf_dir, n):
         total += int(live.sum())
         s = env.step(s, torch.where(live, acts, env.pass_action))
     return b, total
+
+
+def check_shapes(torch, card, spy, tag, where):
+    """Hold every kernel against its plain twin and time both at each
+    shape `spy` (a KernelSpy) saw, on the inputs it kept; `where(k,
+    n_launch)` says where in the run launch k fell. Returns {name: [shape
+    records]}."""
+    from sayuri_tpu_torch.game import board as TB
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
+
+    plain_of = {"step_and_analyze": TA.step_and_analyze_plain,
+                "board_analysis": TA.board_analysis_plain,
+                "ladder_prep": TA.ladder_prep_plain,
+                "step_and_legal": TA.step_and_legal_plain,
+                "run_greedy": LK.run_greedy_plain, "run_chases": LK.run_chases_plain,
+                "flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
+    kernel_of = {name: getattr(mod, name) for mod, names in spy.wrappers
+                 for name in names}
+    shapes = {}
+    for (name, size, n), n_launch in sorted(spy.counts.items()):
+        a = spy.inputs[(name, size, n)]
+        got = kernel_of[name](*a)
+        # the ladder searches' plain twins that also count each lane's plies
+        if name == "run_greedy":
+            res, forked, plies = LK.greedy_steps_plain(*a)
+            got = dict(zip(("result", "forked"), got))
+            want = {"result": res, "forked": forked}
+        elif name == "run_chases":
+            res, plies = LK.chase_descents_plain(*a)
+            got, want = {"result": got}, {"result": res}
+        else:
+            want = plain_of[name](*a)
+            if not isinstance(got, dict):
+                got, want = {name: got}, {name: want}
+        at = f"{size} {'lanes' if name.startswith('run_') else 'boards'} of {n}x{n}"
+        cells, err = compare(torch, got, want, f"{name} at {at} ({tag})")
+        ms = time_card(torch, kernel_of[name], a, iters=10)
+        plain_ms = time_card(torch, plain_of[name], a, iters=1, warmup=0)
+        if name.startswith("run_"):
+            # the searched lanes' bytes and the plies these inputs need
+            b_ms = bound(*lane_work(a, plies, len(got), a[7]))[0]
+        else:
+            # bytes of the inputs and outputs, OPS_PER_CELL a cell
+            cells_in = (a[-1] if name in ("flood", "chain_labels") else a[0]).numel()
+            b_ms = bound(tensor_bytes(torch, (a, got)), OPS_PER_CELL * cells_in)[0]
+        k = spy.kept[(name, size, n)]
+        shapes.setdefault(name, []).append(
+            {"boards": size, "n": n, "launches": n_launch, "inputs_of_launch": k, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err})
+        print(f"{name} at {at} ({tag}): {n_launch} launches, the inputs of launch {k} "
+              f"({where(k, n_launch)}): {cells} outputs equal the plain version, kernel "
+              f"{ms:.4f} ms, plain on card {plain_ms:.2f} ms, bound {b_ms:.3g} ms  "
+              f"[{card}]")
+    return shapes
+
+
+# phase 14: the GTP mode on the shipped config, two 9x9 endgames, the
+# benchmark mode
+GTP_CONFIG = ROOT / "configs/gtp-p400.txt"
+GTP_GENMOVES = 8
+GTP_ANALYZE_S = 2.0          # the analyze stream runs this long before the next line
+ENDGAME_N, ENDGAME_PLAYOUTS, ENDGAME_MOVES = 9, 16, 100
+BENCH_QUERY = "bg:16:32"
+# the plain functions that must not run on the card's GTP path
+GTP_GUARDED = {"ops.analysis": ("board_analysis_plain", "step_and_analyze_plain",
+                                "step_and_legal_plain", "ladder_prep_plain", "_step_plain"),
+               "ops.ladder_kernel": ("run_greedy_plain", "run_chases_plain",
+                                     "greedy_steps_plain", "chase_descents_plain"),
+               "game.board": ("chain_labels_plain", "flood_plain"),
+               "game.analysis": ("pass_alive_area", "safe_and_ownership")}
+
+
+class PlainGuard:
+    """While installed, the plain functions of GTP_GUARDED raise when any
+    argument is a CUDA tensor: the card's path runs the kernels only."""
+
+    def __enter__(self):
+        import importlib
+
+        self.real = []
+        for mod_name, names in GTP_GUARDED.items():
+            mod = importlib.import_module(f"sayuri_tpu_torch.{mod_name}")
+            for name in names:
+                fn = getattr(mod, name)
+                self.real.append((mod, name, fn))
+
+                def guarded(*args, _fn=fn, _name=name, **kw):
+                    if any(getattr(a, "is_cuda", False) for a in args):
+                        raise RuntimeError(f"{_name} ran on the card's GTP path")
+                    return _fn(*args, **kw)
+                setattr(mod, name, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.real:
+            setattr(mod, name, fn)
+
+
+def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
+    """Phase 14. (a) `--mode gtp --config configs/gtp-p400.txt --weights
+    F` through the CLI with stdin and stdout replaced: the admin commands,
+    GTP_GENMOVES genmoves with tree reuse, play and undo, a kata-analyze
+    stream of about GTP_ANALYZE_S seconds before the next line arrives,
+    sayuri-raw_nn avg, final_score, final_status_list dead, printsgf; every
+    answer "=", the SGF replayed legally on the CPU. (b) Two 9x9 games of
+    genmoves: the area rule with --first-pass-bonus --friendly-pass
+    --capture-all-dead --symm-pruning, and the territory rule, whose
+    territory helper playout runs before final_score; final_score,
+    final_status_list dead, gogui-seki and printsgf answer "=", the SGFs
+    replay legally. (c) Every kernel held against its plain twin at each
+    shape (a) and (b) gave it. (d) `--mode benchmark --benchmark-query
+    BENCH_QUERY`. Returns (launches of (a) + (b), shapes)."""
+    import contextlib
+    import io
+    import os
+    import threading
+
+    from sayuri_tpu_torch import __main__ as CLI
+    from sayuri_tpu_torch.config import Options
+    from sayuri_tpu_torch.gtp import loop as GL
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
+
+    kernels = ("step_and_analyze", "board_analysis", "ladder_prep", "flood", "chain_labels")
+    spy = KernelSpy(TA, LK, FK, late=True)
+    timed = []                       # (command, seconds, playouts)
+    analyze_started = threading.Event()
+    real_execute = GL.GtpLoop.execute
+
+    def execute(self, line):
+        words = line.split()
+        if words and words[0] == "kata-analyze":
+            analyze_started.set()
+        t0 = time.monotonic()
+        ok, body = real_execute(self, line)
+        torch.cuda.synchronize()
+        if words and words[0] == "genmove":
+            timed.append((line, time.monotonic() - t0, self.agent.last_stats["playouts"]))
+        return ok, body
+
+    genmoves = [f"genmove {'bw'[i % 2]}" for i in range(GTP_GENMOVES)]
+    script = (["name", "list_commands", "boardsize 19", "clear_board"] + genmoves
+              + ["play b A1", "undo", "kata-analyze b 50", "sayuri-raw_nn avg", "final_score",
+                 "final_status_list dead", "printsgf", "quit"])
+    r, w = os.pipe()
+    instream, feed = os.fdopen(r, "r"), os.fdopen(w, "w")
+
+    out = io.StringIO()
+
+    def writer():
+        """Feed the script; after kata-analyze, hold the next line until
+        the stream has run GTP_ANALYZE_S seconds and printed an info line
+        (the interval emission every 0.5 s)."""
+        for line in script:
+            feed.write(line + "\n")
+            feed.flush()
+            if line.startswith("kata-analyze"):
+                analyze_started.wait(timeout=900)
+                t_start = time.monotonic()
+                while "info move" not in out.getvalue() and time.monotonic() - t_start < 900:
+                    time.sleep(0.05)
+                time.sleep(max(0.0, GTP_ANALYZE_S - (time.monotonic() - t_start)))
+        feed.close()
+
+    spy.install()
+    reset_counts()
+    GL.GtpLoop.execute = execute
+    feeder = threading.Thread(target=writer, daemon=True)
+    t0 = time.monotonic()
+    try:
+        with PlainGuard(), contextlib.redirect_stdout(out):
+            stdin, sys.stdin = sys.stdin, instream
+            feeder.start()
+            try:
+                loop = CLI.main(["--mode", "gtp", "--config", str(GTP_CONFIG),
+                                 "--weights", str(wfile)], device=dev)
+            finally:
+                sys.stdin = stdin
+        torch.cuda.synchronize()
+    finally:
+        GL.GtpLoop.execute = real_execute
+        feeder.join(timeout=60)
+        instream.close()
+    session_s = time.monotonic() - t0
+    a_launches = counts()
+    text = out.getvalue()
+    answers = [line for line in text.split("\n") if line[:1] in ("=", "?")]
+    if len(answers) != len(script) or any(a[0] != "=" for a in answers):
+        bad = [(c, a) for c, a in zip(script, answers) if a[0] != "="]
+        raise RuntimeError(f"19x19 GTP: {len(answers)} answers to {len(script)} commands, "
+                           f"failures {bad[:4]}")
+    infos = [line for line in text.split("\n") if line.startswith("info move")]
+    if not infos:
+        raise RuntimeError("19x19 GTP: the kata-analyze stream gave no info line:\n" + text[-3000:])
+    first = infos[-1].split()
+    visits, winrate = int(first[first.index("visits") + 1]), float(first[first.index("winrate") + 1])
+    if visits <= 0 or not 0.0 <= winrate <= 1.0:
+        raise RuntimeError(f"19x19 GTP: info line {infos[-1][:120]}")
+    sgf_dir = work / "gtp-sgf"
+    sgf_dir.mkdir()
+    sgf = next(a for a in answers if a.startswith("= (;"))[2:]
+    (sgf_dir / "game.sgf").write_text(sgf)
+    n_games, n_moves = replay_sgfs(torch, sgf_dir, 19)
+    if n_moves != GTP_GENMOVES:
+        raise RuntimeError(f"19x19 GTP: the SGF holds {n_moves} moves")
+    need(a_launches, "19x19 GTP", some=kernels + ("run_greedy",))
+    secs = [t for _, t, _ in timed]
+    playouts = [p for _, _, p in timed]
+    moves = [a.split()[1] for a in answers[4:4 + GTP_GENMOVES]]
+    print(f"19x19 gtp-p400 session ({session_s:.1f} s): every answer '=', {len(infos)} "
+          f"info lines in {GTP_ANALYZE_S} s of kata-analyze (last: {visits} visits, winrate "
+          f"{winrate}), SGF of {n_moves} moves replays legally on the CPU; moves {moves}")
+    print(f"19x19 genmove seconds {[round(t, 3) for t in secs]}, playouts {playouts}; "
+          f"median {sorted(secs)[len(secs) // 2]:.3f} s a genmove, B=1 "
+          f"{sum(playouts) / sum(secs):.1f} playouts/s (b6c96 bf16, 400 playouts, tree "
+          f"reuse)  [{card}]")
+    print(f"19x19 GTP launches: { {k: v for k, v in a_launches.items() if v} }")
+
+    def endgame(tag, extra, territory):
+        opts = Options().parse_args(["--boardsize", str(ENDGAME_N), "--komi", "7",
+                                     "--playouts", str(ENDGAME_PLAYOUTS),
+                                     "--weights", str(wfile)] + extra)
+        opts.check_gtp_flags()
+        loop = CLI.build_gtp_loop(opts, device=dev)
+
+        def ex(line):
+            ok, body = loop.execute(line)
+            if not ok:
+                raise RuntimeError(f"9x9 {tag}: {line}: ? {body}")
+            return body
+
+        before = counts()
+        ex("clear_board")
+        if territory:
+            ex("rules japanese")
+        passes, sims, played = 0, 0, []
+        for i in range(ENDGAME_MOVES):
+            mv = ex(f"genmove {'bw'[i % 2]}")
+            sims += loop.agent.last_stats["playouts"]
+            played.append(mv)
+            if mv == "resign":
+                break
+            passes = passes + 1 if mv == "pass" else 0
+            if passes == 2:
+                break
+        if territory:
+            loop.agent.update_territory_helper()
+        score = ex("final_score")
+        dead = ex("final_status_list dead")
+        seki = ex("gogui-seki").split()
+        gdir = work / f"gtp-{tag}"
+        gdir.mkdir()
+        (gdir / "game.sgf").write_text(ex("printsgf"))
+        replay_sgfs(torch, gdir, ENDGAME_N)
+        after = counts()
+        used = {k: after[k] - before[k] for k in after}
+        print(f"9x9 {tag}: {len(played)} genmoves (last {played[-3:]}), {sims} simulations, "
+              f"final_score {score}, {len(dead.split())} dead stones, {seki.count('1')} seki "
+              f"points; the moves replay legally on the CPU; chain_labels launches a "
+              f"simulation {used['chain_labels'] / max(sims, 1):.2f}, flood "
+              f"{used['flood'] / max(sims, 1):.2f}, step_and_analyze "
+              f"{used['step_and_analyze'] / max(sims, 1):.2f}")
+        return used
+
+    try:
+        with PlainGuard():
+            endgame("area, --first-pass-bonus --friendly-pass --capture-all-dead "
+                    "--symm-pruning", ["--first-pass-bonus", "--friendly-pass",
+                                       "--capture-all-dead", "--symm-pruning"], False)
+            endgame("territory", [], True)
+        torch.cuda.synchronize()
+    finally:
+        spy.remove()
+    launches = counts()
+    need(launches, "GTP", some=kernels)
+    seen = {}
+    for (name, *_), c in spy.counts.items():
+        seen[name] = seen.get(name, 0) + c
+    if any(seen.get(k, 0) != v for k, v in launches.items()):
+        raise RuntimeError(f"GTP: the spy saw {seen}, the counters {launches}")
+    print(f"GTP launches (19x19 session and both 9x9 games): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    shapes = check_shapes(torch, card, spy, "GTP", lambda k, n: f"launch {k} of {n}")
+
+    bench_out = io.StringIO()
+    with contextlib.redirect_stdout(bench_out):
+        rates = CLI.main(["--mode", "benchmark", "--benchmark-query", BENCH_QUERY], device=dev)
+    line = bench_out.getvalue().strip()
+    if not re.match(r"batch 16 x 32 playouts: [0-9.]+ p/s", line) or not rates[0] > 0:
+        raise RuntimeError(f"benchmark mode printed {line!r}")
+    print(f"benchmark mode: {line}  [{card}]")
+    return launches, shapes
 
 
 def main():
@@ -745,7 +1066,7 @@ def main():
           f"times): {cells} outputs equal the tiled plain output")
     ms_env = time_card(torch, TA.step_and_legal, args_env)
     env_nbytes = tensor_bytes(torch, (args_env, want_env))
-    step_rec["by_shape"] = [{"boards": ENV_BATCH, "ms": ms_env,
+    step_rec["by_shape"] = [{"boards": ENV_BATCH, "n": 19, "ms": ms_env,
                              "bound_ms": bound(env_nbytes, OPS_PER_CELL
                                                * args_env[0].numel())[0]}]
     rec["step_and_legal"] = step_rec
@@ -998,13 +1319,13 @@ def main():
                 shape_launches[key] = shape_launches.get(key, 0) + c
     plains = {"flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
     for name in plains:
-        seen = sum(c for (k, _), c in shape_launches.items() if k == name)
+        seen = sum(c for (k, *_), c in shape_launches.items() if k == name)
         if seen != path_launches[name][1]:
             raise RuntimeError(f"{name}: the shape spy saw {seen} launches, the "
                                f"counter {path_launches[name][1]}")
         rec[name]["by_shape"] = []
-    for (name, boards), n_launch in sorted(shape_launches.items()):
-        a = shape_spy.inputs[(name, boards)]
+    for (name, boards, n), n_launch in sorted(shape_launches.items()):
+        a = shape_spy.inputs[(name, boards, n)]
         fn = getattr(FK, name)
         got = fn(*a)
         cells, err = compare(torch, {name: got}, {name: plains[name](*a)},
@@ -1014,7 +1335,7 @@ def main():
         r["max_abs_err"] = max(r["max_abs_err"], err)
         ms = time_card(torch, fn, a, iters=10)
         b_ms = bound(tensor_bytes(torch, (a, got)), OPS_PER_CELL * a[-1].numel())[0]
-        r["by_shape"].append({"boards": boards, "launches": n_launch, "ms": ms,
+        r["by_shape"].append({"boards": boards, "n": n, "launches": n_launch, "ms": ms,
                               "bound_ms": b_ms})
         print(f"{name} at {boards} boards {tuple(a[-1].shape)}: {n_launch} launches on "
               f"the main paths, kernel {ms:.4f} ms, bound {b_ms:.6f} ms, {cells} cells "
@@ -1054,13 +1375,11 @@ def main():
     import tempfile
 
     from sayuri_tpu_torch import __main__ as CLI
-    from sayuri_tpu_torch.models import weights_io as W
 
     work = Path(tempfile.mkdtemp(prefix="sayuri-selfplay-"))
     wdir, out_dir = work / "weights", work / "out"
     wdir.mkdir()
-    W.export_reference_weights(SayuriNet(NetConfig(boardsize=9)).init_random(11),
-                               str(wdir / "b6c96-seed11.txt"))
+    wfile = bench.write_seeded_v5(wdir / f"b6c96-seed{bench.V5_SEED}.txt")
     kernel_spy = KernelSpy(TA, LK, FK, late=True)
     kernel_spy.install()
     reset_counts()
@@ -1092,7 +1411,7 @@ def main():
                                          "ladder_prep", "run_greedy", "run_chases",
                                          "flood", "chain_labels"))
     seen = {}
-    for (name, _), c in kernel_spy.counts.items():
+    for (name, *_), c in kernel_spy.counts.items():
         seen[name] = seen.get(name, 0) + c
     if any(seen.get(k, 0) != v for k, v in sp_launches.items()):
         raise RuntimeError(f"self-play: the spy saw {seen}, the counters {sp_launches}")
@@ -1126,7 +1445,7 @@ def main():
           f"helper playout {rnd['helper_steps']} moves")
 
     # the NN cache runs every lane through the net (it saves no forward
-    # pass), so the reading is taken with it on and off, alternated
+    # pass), so the reading is taken with it on and off (on, then off)
     for cache_sets in SP_BENCH_CACHE_SETS:
         reset_counts()
         sp_bench = bench.bench_selfplay(SP_BENCH_BATCH, SP_BENCH_MOVES, device=dev,
@@ -1143,51 +1462,17 @@ def main():
               f"{sp_bench['positions']} kept positions in {sp_bench['seconds']:.3f} s; "
               f"NN cache {sp_bench['queries']})  [{card}]")
 
-    plain_of = {"step_and_analyze": TA.step_and_analyze_plain,
-                "board_analysis": TA.board_analysis_plain,
-                "ladder_prep": TA.ladder_prep_plain,
-                "step_and_legal": TA.step_and_legal_plain,
-                "run_greedy": LK.run_greedy_plain, "run_chases": LK.run_chases_plain,
-                "flood": TB.flood_plain, "chain_labels": TB.chain_labels_plain}
-    kernel_of = {name: getattr(mod, name) for mod, names in kernel_spy.wrappers
-                 for name in names}
-    sp_shapes = {}
-    for (name, size), n_launch in sorted(kernel_spy.counts.items()):
-        a = kernel_spy.inputs[(name, size)]
-        got = kernel_of[name](*a)
-        # the ladder searches' plain twins that also count each lane's plies
-        if name == "run_greedy":
-            res, forked, plies = LK.greedy_steps_plain(*a)
-            got = dict(zip(("result", "forked"), got))
-            want = {"result": res, "forked": forked}
-        elif name == "run_chases":
-            res, plies = LK.chase_descents_plain(*a)
-            got, want = {"result": got}, {"result": res}
-        else:
-            want = plain_of[name](*a)
-            if not isinstance(got, dict):
-                got, want = {name: got}, {name: want}
-        cells, err = compare(torch, got, want, f"{name} at {size} (self-play)")
-        ms = time_card(torch, kernel_of[name], a, iters=10)
-        plain_ms = time_card(torch, plain_of[name], a, iters=1, warmup=0)
-        if name.startswith("run_"):
-            # the searched lanes' bytes and the plies these inputs need
-            b_ms = bound(*lane_work(a, plies, len(got), a[7]))[0]
-        else:
-            # bytes of the inputs and outputs, OPS_PER_CELL a cell
-            cells_in = (a[-1] if name in ("flood", "chain_labels") else a[0]).numel()
-            b_ms = bound(tensor_bytes(torch, (a, got)), OPS_PER_CELL * cells_in)[0]
-        k = kernel_spy.kept[(name, size)]
-        sp_shapes.setdefault(name, []).append(
-            {"boards": size, "launches": n_launch, "inputs_of_launch": k, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err})
-        print(f"{name} at {size} {'lanes' if name.startswith('run_') else 'boards'} "
-              f"(self-play): {n_launch} launches, the inputs of launch {k} (about move "
-              f"{round(rnd['moves'] * k / n_launch)} of {rnd['moves']}): {cells} outputs "
-              f"equal the plain version, kernel {ms:.4f} ms, plain on card "
-              f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms  [{card}]")
-    shutil.rmtree(work, ignore_errors=True)
+    sp_shapes = check_shapes(
+        torch, card, kernel_spy, "self-play",
+        lambda k, n: f"about move {round(rnd['moves'] * k / n)} of {rnd['moves']}")
     phase_done("self-play")
+
+    # ---- 14. GTP ----
+    phase("GTP")
+    gtp_launches, gtp_shapes = run_gtp_phase(
+        torch, dev, card, wfile, work, reset_counts, counts, need)
+    shutil.rmtree(work, ignore_errors=True)
+    phase_done("GTP")
 
     # ---- result ----
     kernels = []
@@ -1219,6 +1504,8 @@ def main():
             "library_ms": None,
             "selfplay_launches": sp_launches[name],
             "selfplay_by_shape": sp_shapes.get(name, []),
+            "gtp_launches": gtp_launches[name],
+            "gtp_by_shape": gtp_shapes.get(name, []),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))

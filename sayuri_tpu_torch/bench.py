@@ -32,6 +32,19 @@ probability 0.75, Gumbel, NN cache of 512 sets, max_nodes = playouts +
 `moves` moves (default 8) after a one-move warm-up; prints ONE JSON line
 with moves/s (lane-moves) and kept positions/s.
 
+    python -m sayuri_tpu_torch.bench gtp [genmoves]
+
+times what a GTP user waits for: the GTP loop as configs/gtp-p400.txt
+configures it (19x19, komi 7.5, 400 playouts, tree reuse) with the b6c96
+net loaded from a v5 file of seeded random weights (the file
+chip_smoke.py loads; bf16), `genmoves` genmove commands (default 8) from
+an empty board, alternating colours, after one warm-up genmove on a board
+cleared afterwards, then three with tree reuse off; prints ONE JSON line
+with the median seconds a genmove (``gtp_genmove_s_19x19_b6c96``), the
+B=1 playouts/s and seconds a playout, and the median seconds of a genmove
+that searches a new tree (``gtp_fresh_genmove_s_19x19_b6c96``: its
+playouts do not depend on how much of the last tree a move kept).
+
     python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
 
 times the board and ladder kernels built from another csrc/ tree (an
@@ -57,6 +70,8 @@ from torch.profiler import record_function
 METRIC = "mcts_playouts_per_s_19x19_b6c96"
 ENV_METRIC = "env_steps_per_s_19x19"
 SELFPLAY_METRIC = "selfplay_positions_per_s_19x19_b6c96"
+GTP_METRIC = "gtp_genmove_s_19x19_b6c96"
+GTP_FRESH_METRIC = "gtp_fresh_genmove_s_19x19_b6c96"
 _M32 = 0xFFFFFFFF
 
 
@@ -213,6 +228,72 @@ def _selfplay_setup(batch: int, device="cuda", seed: int = 0, **over):
     actor = SelfplayActor(env, MCTS(env, eval_fn, opts.search_config()),
                           opts.selfplay_config())
     return actor, env.new_batch(batch, komi=7.5, device=device)
+
+
+GTP_CONFIG = Path(__file__).resolve().parents[1] / "configs" / "gtp-p400.txt"
+
+
+V5_SEED = 11     # the seed of the v5 file bench gtp and chip_smoke.py load
+
+
+def write_seeded_v5(path):
+    """Write the b6c96 net with random weights seeded by V5_SEED as a v5
+    file at `path` (the file `--weights` loads); returns `path`."""
+    from sayuri_tpu_torch.models import weights_io as W
+    from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+
+    W.export_reference_weights(SayuriNet(NetConfig(boardsize=9)).init_random(V5_SEED), str(path))
+    return path
+
+
+def bench_gtp(genmoves: int = 8, fresh: int = 3, device="cuda", argv=()):
+    """Time the loop that ``--mode gtp --config configs/gtp-p400.txt
+    --weights F`` builds (`argv`: more flags), F the seeded b6c96 v5 file
+    of `write_seeded_v5`, after one warm-up genmove on a board cleared
+    afterwards: `genmoves` genmoves (alternating colours, from an empty
+    board) with the config's tree reuse, then `fresh` more with tree reuse
+    off, each a search from a new tree. Returns a dict with each genmove's
+    seconds and playouts, the median of each run, the moves, the B=1
+    playouts/s and seconds a playout of the reuse run."""
+    import statistics
+    import tempfile
+
+    from sayuri_tpu_torch.__main__ import build_gtp_loop
+    from sayuri_tpu_torch.config import Options
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wfile = write_seeded_v5(Path(tmp) / f"b6c96-seed{V5_SEED}.txt")
+        opts = Options().parse_args(["--config", str(GTP_CONFIG), "--weights", str(wfile),
+                                     *argv])
+        opts.check_gtp_flags()
+        loop = build_gtp_loop(opts, device=device)
+
+    def run(lines):
+        seconds, moves, playouts = [], [], []
+        for line in lines:
+            _sync(device)
+            t0 = time.monotonic()
+            ok, body = loop.execute(line)
+            _sync(device)
+            if not ok:
+                raise RuntimeError(f"{line}: ? {body}")
+            if line.startswith("genmove"):
+                seconds.append(time.monotonic() - t0)
+                moves.append(body)
+                playouts.append(loop.agent.last_stats["playouts"])
+        return seconds, moves, playouts
+
+    run(("clear_board", "genmove b", "clear_board"))
+    seconds, moves, playouts = run([f"genmove {'bw'[i % 2]}" for i in range(genmoves)])
+    fresh_s, fresh_moves, fresh_playouts = run(
+        ["sayuri-setoption name reuse tree value false"]
+        + [f"genmove {'bw'[(genmoves + i) % 2]}" for i in range(fresh)])
+    return {"median_s": statistics.median(seconds), "seconds": seconds, "moves": moves,
+            "playouts": playouts, "playouts_per_s": sum(playouts) / sum(seconds),
+            "s_per_playout": sum(seconds) / sum(playouts),
+            "fresh_median_s": statistics.median(fresh_s),
+            "fresh_seconds": fresh_s, "fresh_moves": fresh_moves,
+            "fresh_playouts": fresh_playouts, "loop": loop}
 
 
 def bench_selfplay(batch: int = 256, moves: int = 8, device="cuda", seed: int = 0, **over):
@@ -495,6 +576,24 @@ def main():
             "playouts": res["playouts"],
             "nn_cache_size": res["nn_cache_size"],
             "queries": res["queries"],
+            "device": device_info(),
+        }))
+        return
+    if args and args[0] == "gtp":
+        res = bench_gtp(int(args[1]) if len(args) > 1 else 8)
+        print(json.dumps({
+            "metric": GTP_METRIC,
+            "value": res["median_s"],
+            "unit": "s/genmove",
+            "seconds": res["seconds"],
+            "moves": res["moves"],
+            "playouts": res["playouts"],
+            "playouts_per_s": res["playouts_per_s"],
+            "s_per_playout": res["s_per_playout"],
+            GTP_FRESH_METRIC: res["fresh_median_s"],
+            "fresh_seconds": res["fresh_seconds"],
+            "fresh_moves": res["fresh_moves"],
+            "fresh_playouts": res["fresh_playouts"],
             "device": device_info(),
         }))
         return

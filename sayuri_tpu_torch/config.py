@@ -7,9 +7,11 @@ line, `#` comments). Multi-valued options (`--selfplay-query`) accumulate
 into lists. `--no-X` negates a boolean option X; `--no-cache` turns the NN
 cache off; `--cache-memory-mib` sizes it in MiB.
 
-The port runs the `selfplay` mode only. ``check_selfplay_flags`` raises
-for every option that was given on the command line or in a config file
-and that the mode does not read yet, so that no flag is silently dropped.
+The port runs the `gtp`, `selfplay` and `benchmark` modes.
+``check_gtp_flags``, ``check_selfplay_flags`` and
+``check_benchmark_flags`` raise for every option that was given on the
+command line or in a config file and that the mode does not read yet, so
+that no flag is silently dropped.
 """
 
 from __future__ import annotations
@@ -175,8 +177,37 @@ SELFPLAY_OPTIONS = frozenset({
     "random_min_visits", "random_opening_prob", "random_opening_temp",
     "komi_stddev", "komi_big_stddev", "komi_big_stddev_prob",
     "handicap_fair_komi_prob", "fastsearch_playouts", "fastsearch_playouts_prob",
-    "resign_playouts", "resign_discard_prob", "target_directory",
+    "resign_playouts", "resign_discard_prob", "target_directory", "first_pass_bonus",
 })
+
+
+# the search fields the gtp and benchmark modes read
+_SEARCH_OPTIONS = frozenset({
+    "nn_cache_size", "cache_memory_mib", "cpuct_init", "cpuct_base",
+    "cpuct_base_factor", "cpuct_dynamic", "cpuct_dynamic_k_factor",
+    "cpuct_dynamic_k_base", "fpu_reduction", "root_fpu_reduction",
+    "score_utility_factor", "score_utility_div", "lcb_reduction",
+    "forced_playouts_k", "gumbel", "gumbel_c_visit", "gumbel_c_scale",
+    "gumbel_considered_moves", "gumbel_prom_visits", "gumbel_playouts_threshold",
+    "ci_alpha", "dirichlet_noise", "dirichlet_epsilon", "dirichlet_init",
+    "dirichlet_factor", "first_pass_bonus",
+})
+# what the gtp mode reads: the search fields, the Agent's and the loop's
+# arguments (the pattern gammas wait for their port)
+GTP_OPTIONS = _SEARCH_OPTIONS | {
+    "mode", "boardsize", "komi", "playouts", "weights_file", "use_rollout",
+    "ponder", "ponder_factor", "kldgain_per_node", "kldgain_interval",
+    "policy_temp", "root_policy_temp", "suppress_pass_factor", "use_stm_winrate",
+    "use_optimistic_policy", "timemanage", "symm_pruning", "friendly_pass",
+    "capture_all_dead", "reuse_tree", "book_file", "const_time", "lag_buffer",
+    "resign_threshold", "kgs_hint", "logfile",
+}
+# what the benchmark mode reads
+BENCHMARK_OPTIONS = _SEARCH_OPTIONS | {
+    "mode", "boardsize", "komi", "playouts", "weights_file", "benchmark_query",
+}
+# flags that need the pattern-gammas port
+_GAMMAS_OPTIONS = ("patterns_file", "gammas_policy_factor")
 
 
 class Options:
@@ -274,20 +305,35 @@ class Options:
         self.parse_args(toks)
         return self
 
+    def _check_flags(self, mode, reads):
+        unsupported = sorted(self._given - reads)
+        if unsupported:
+            flags = ", ".join("--" + k.replace("_", "-") for k in unsupported)
+            gammas = [f for f in _GAMMAS_OPTIONS if f in unsupported]
+            why = (" (" + ", ".join("--" + k.replace("_", "-") for k in gammas)
+                   + " wait for the pattern-gammas port)") if gammas else ""
+            raise ValueError(f"--mode {mode}: not supported by the PyTorch port yet: "
+                             f"{flags}{why}")
+
     def check_selfplay_flags(self):
         """Raise ValueError naming every given option the selfplay mode
         does not read."""
-        unsupported = sorted(self._given - SELFPLAY_OPTIONS)
-        if unsupported:
-            flags = ", ".join("--" + k.replace("_", "-") for k in unsupported)
-            raise ValueError(f"--mode selfplay: not supported by the PyTorch port yet: "
-                             f"{flags}")
+        self._check_flags("selfplay", SELFPLAY_OPTIONS)
+
+    def check_gtp_flags(self):
+        """Raise ValueError naming every given option the gtp mode does not
+        read (--patterns and --gammas-policy-factor among them, until the
+        pattern gammas are ported)."""
+        self._check_flags("gtp", GTP_OPTIONS)
+
+    def check_benchmark_flags(self):
+        """Raise ValueError naming every given option the benchmark mode
+        does not read."""
+        self._check_flags("benchmark", BENCHMARK_OPTIONS)
 
     def search_config(self, max_nodes=None, **over):
         from sayuri_tpu_torch.mcts.core import SearchConfig
 
-        if self.get("first_pass_bonus"):
-            raise ValueError("--first-pass-bonus is not supported by the PyTorch port yet")
         g = self.get
         return SearchConfig(
             max_nodes=max_nodes or (g("playouts") + 32),
@@ -315,6 +361,7 @@ class Options:
             dirichlet_init=g("dirichlet_init"),
             dirichlet_factor=g("dirichlet_factor"),
             nn_cache_size=g("nn_cache_size"),
+            first_pass_bonus=g("first_pass_bonus"),
             **over,
         )
 

@@ -82,7 +82,10 @@ class GoEnv:
     # -- construction ------------------------------------------------------
 
     def new_batch(self, batch: int, size=None, komi=7.5, rule=AREA_RULE,
-                  device="cuda") -> GoState:
+                  device="cuda", handicap=0) -> GoState:
+        """`batch` empty boards; `handicap` stones counted for the area
+        rule's komi penalty (``new_batch(1, ...)`` stands for the JAX
+        package's single-game ``new_state``)."""
         n = self.n
         size = n if size is None else size
         i32 = torch.int32
@@ -105,7 +108,7 @@ class GoEnv:
             size=full((batch,), size, i32),
             komi=full((batch,), komi, torch.float32),
             rule=full((batch,), rule, i32),
-            handicap=full((batch,), 0, i32),
+            handicap=full((batch,), handicap, i32),
             prisoners=full((batch, 2), 0, i32),
             played_stones=full((batch, 2), 0, i32),
             terminated=full((batch,), False, torch.bool),

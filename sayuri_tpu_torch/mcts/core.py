@@ -21,8 +21,11 @@ their budget are frozen), the shared NN evaluation cache
 (mcts/nncache.py), tree reuse across moves (``advance_root``), Welford
 variance for WL and score, terminal two-pass leaves valued by the final
 score, exact-tie PUCT resolution to the highest prior, and LCB best-move
-selection with the self-play forbid-pass mask. The first-pass bonus and
-the Tromp-Taylor terminal scoring switch are not ported yet.
+selection with the self-play forbid-pass mask, a root evaluator of its
+own (``root_eval_fn``: the GTP engine's root temperature and policy head,
+never cached), the first-pass score bonus (``first_pass_bonus``: seki and
+ownership at every expansion, folded into the score mean at backup) and
+the plain Tromp-Taylor scoring of terminal leaves (``terminal_tt_score``).
 
 Random draws (Dirichlet noise, Gumbel noise) come from the
 ``torch.Generator`` handed to ``init_tree``, kept in the tree: the JAX
@@ -94,6 +97,13 @@ class SearchConfig:
     ci_alpha: float = 1e-5
     # NN eval cache sets (2 ways each, shared by all lanes); 0 disables
     nn_cache_size: int = 0
+    # endgame score bonus: pass and seki / dame points under the area rule,
+    # pass and filling one's own territory penalized under the territory
+    # rule (MCTS._score_bonus); off by default
+    first_pass_bonus: bool = False
+    # value terminal two-pass leaves by the plain Tromp-Taylor reach
+    # ownership instead of the score area with the pass-alive override
+    terminal_tt_score: bool = False
 
 
 @dataclasses.dataclass
@@ -111,6 +121,9 @@ class Tree:
     #   (black), 7 net_wl (black)
     stats: torch.Tensor
     terminal: torch.Tensor       # [B, N+1] bool
+    # first-pass-bonus score offset of the move leading to the node (black's
+    # view); all zero unless cfg.first_pass_bonus
+    black_sb: torch.Tensor       # [B, N+1] f32
     states: GoState              # per-node states, leading dims [B, N+1]
     next_free: torch.Tensor      # [B] int64
     root_noise: torch.Tensor     # [B, A] Dirichlet noise
@@ -181,9 +194,14 @@ def expected_score_value(mean, stddev, center, div, board_size):
 class MCTS:
     """Batched search driver bound to an env + eval function."""
 
-    def __init__(self, env: GoEnv, eval_fn: EvalFn, cfg: SearchConfig):
+    def __init__(self, env: GoEnv, eval_fn: EvalFn, cfg: SearchConfig,
+                 root_eval_fn: EvalFn | None = None):
         self.env = env
         self.eval_fn = eval_fn
+        # the root may be evaluated with another head / temperature than the
+        # leaves; such a root evaluation bypasses the NN cache, so that the
+        # cache only ever holds leaf evaluations
+        self.root_eval_fn = root_eval_fn
         self.cfg = cfg
         self.A = env.num_actions
 
@@ -212,7 +230,9 @@ class MCTS:
 
         if cache is None and cfg.nn_cache_size > 0:
             cache = NC.make_cache(b, cfg.nn_cache_size, A, self.env.n ** 2, device=dev)
-        if cache is not None:
+        if self.root_eval_fn is not None:
+            evals = self.root_eval_fn(root_states, ctx)
+        elif cache is not None:
             evals, cache = NC.cached_eval(cache, self.eval_fn, root_states, ctx)
         else:
             evals = self.eval_fn(root_states, ctx)
@@ -257,6 +277,7 @@ class MCTS:
             parent=torch.full((b, rows), -1, dtype=torch.int64, device=dev),
             stats=stats,
             terminal=terminal,
+            black_sb=torch.zeros((b, rows), device=dev),
             states=slim.map(node_buf),
             next_free=torch.ones((b,), dtype=torch.int64, device=dev),
             root_noise=noise,
@@ -440,8 +461,14 @@ class MCTS:
                 evals = self.eval_fn(child_states, eval_ctx)
             leaf = self._leaf_values(child_states, analysis, evals)
         with record_function("mcts.expand_backup"):
+            if self.cfg.first_pass_bonus:
+                # the bonus reads the root ownership before this backup
+                # updates it
+                sb = self._score_bonus(parent_states, leaf_action, tree.root_ownership)
+            else:
+                sb = None
             self._expand_backup(tree, b_idx, path, leaf_parent, leaf_action,
-                                child_states, evals, leaf, active)
+                                child_states, evals, leaf, active, sb)
         return tree
 
     def _descend(self, tree, b_idx, sim_idx=None):
@@ -486,7 +513,8 @@ class MCTS:
         """(black_wl, black_score, black_own, draw) of the leaves: the net's
         evaluation, or the final score for terminal two-pass leaves."""
         term = child_states.terminated
-        own_map = analysis["score_ownership"].reshape(term.shape[0], -1)
+        key = "ownership" if self.cfg.terminal_tt_score else "score_ownership"
+        own_map = analysis[key].reshape(term.shape[0], -1)
         t_score = (own_map.sum(-1).to(torch.float32)
                    - self.env.komi_with_penalty(child_states))
         own_map = own_map.to(torch.float32)
@@ -497,11 +525,52 @@ class MCTS:
         draw = torch.where(term, 0.0, evals.draw)
         return black_wl, black_score, black_own, draw
 
+    def _score_bonus(self, parent_states, action, root_own):
+        """[B] black-view score bonus of playing `action` from
+        `parent_states`. Under the area rule a pass, a seki point, or a
+        point the mover owns strongly (> 0.8) next to an opponent stone
+        gets +0.5; under the territory rule a pass gets -1/3 and a point
+        owned beyond 0.8 by either side a penalty rising to -0.5. No bonus
+        while a ko is pending. As in the JAX package, the ownership is the
+        tree's running root average, not the parent node's own."""
+        from sayuri_tpu_torch.game import analysis as GA
+        from sayuri_tpu_torch.game.types import AREA_RULE
+
+        n = self.env.n
+        nn = n * n
+        b = action.shape[0]
+        b_idx = torch.arange(b, device=action.device)
+        thr, tail, end_bonus = 0.8, 0.2, 0.5
+        color = parent_states.to_move                     # mover
+        is_pass = action >= nn
+        v = action.to(torch.int64).clamp(0, nn - 1)
+        own_at = root_own[b_idx, v]                       # black view
+
+        seki = GA.seki_at(parent_states.stones, parent_states.size, v)
+        opp = (2 - color).to(parent_states.stones.dtype)   # opponent stone value
+        st = parent_states.stones.reshape(b, nn)
+        nbr_opp = torch.zeros_like(is_pass)
+        for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            y, x = v // n + dy, v % n + dx
+            ok = (y >= 0) & (y < n) & (x >= 0) & (x < n)
+            nbr_opp = nbr_opp | (ok & (st[b_idx, (y * n + x).clamp(0, nn - 1)] == opp))
+
+        own_sign = torch.where(color == 0, own_at, -own_at)   # mover view
+        area_pt = seki | ((own_sign > thr) & nbr_opp)
+        area_bonus = torch.where(is_pass | area_pt, end_bonus, 0.0)
+        penal = (own_at.abs() - thr).clamp(min=0.0) / tail
+        terr_bonus = torch.where(is_pass, -(2.0 / 3.0) * end_bonus, -penal * end_bonus)
+        bonus = torch.where(parent_states.rule == AREA_RULE, area_bonus, terr_bonus)
+        bonus = torch.where(color == 0, bonus, -bonus)       # black view
+        return torch.where(parent_states.ko >= 0, 0.0, bonus)
+
     def _expand_backup(self, tree, b_idx, path, leaf_parent, leaf_action,
-                       child_states, evals, leaf, active):
+                       child_states, evals, leaf, active, sb=None):
         """Expand the leaf (unless the child exists, the tree is full, the
         root is terminal or the lane is frozen), then back up along the path
-        + the leaf with one gather and one scatter."""
+        + the leaf with one gather and one scatter. `sb`: the first-pass
+        bonus of the leaf's move, written with the expansion and folded into
+        the score mean of every updated node."""
         cfg = self.cfg
         n_nodes = cfg.max_nodes
         black_wl, black_score, black_own, draw = leaf
@@ -524,6 +593,8 @@ class MCTS:
         tree.parent[b_idx, exp_idx] = leaf_parent
         tree.stats[b_idx, exp_idx, 7] = black_wl
         tree.terminal[b_idx, exp_idx] = term
+        if sb is not None:
+            tree.black_sb[b_idx, exp_idx] = sb
         for name, buf in tree.states.fields().items():
             buf[b_idx, exp_idx] = getattr(child_states, name)
         tree.next_free = tree.next_free + can_expand.to(torch.int64)
@@ -561,6 +632,8 @@ class MCTS:
         acc_sc2 = old_sc + sc_e
         sqs2 = old[..., 5] + wdelta(sc_e, old_sc, old_v)
         mean2 = acc_sc2 / nv2
+        if sb is not None:
+            mean2 = mean2 + tree.black_sb[bb, idx_safe]
         var2 = torch.where(nv2 > 1.0, sqs2 / (nv2 - 1.0).clamp(min=1.0), 1.0)
         se_new = expected_score_value(
             mean2, torch.sqrt(var2.clamp(min=0.0)),
@@ -672,6 +745,7 @@ class MCTS:
             parent=parent,
             stats=compact(tree.stats),
             terminal=compact(tree.terminal),
+            black_sb=compact(tree.black_sb),
             states=tree.states.map(compact),
             next_free=count,
         )

@@ -244,3 +244,38 @@ def test_selfplay_round_on_card(cuda):
     text = D.games_to_text(env, records, targets)
     for pos in (p for g in text for p in g):
         assert pos.count("\n") == 53 and pos.startswith("2\n0\n9\n")
+
+
+def test_gtp_genmove_on_card(cuda):
+    """GTP on the card (9x9, a small random net in bf16): genmoves with tree
+    reuse and the hygiene filters answer legal moves, the search's steps,
+    root analysis and ladders, floods and labels come from the kernels, and
+    the answers replay legally on the CPU."""
+    import io
+
+    from sayuri_tpu_torch.gtp.loop import GtpLoop
+    from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+
+    net = SayuriNet(NetConfig(boardsize=9, residual_channels=16,
+                              stack=("ResidualBlock-SE",))).init_random(2)
+    loop = GtpLoop(boardsize=9, komi=7.5, playouts=16, net=net, device=cuda,
+                   friendly_pass=True, capture_all_dead=True)
+    for m in (TA, LK, FK):
+        m.reset_launch_counts()
+    out = io.StringIO()
+    loop.run(io.StringIO("".join(f"genmove {'bw'[i % 2]}\n" for i in range(6))
+                         + "final_score\ngogui-seki\nquit\n"), out)
+    answers = [line for line in out.getvalue().split("\n") if line[:1] in ("=", "?")]
+    assert len(answers) == 9 and all(a.startswith("=") for a in answers)
+    # a board larger than the kernels' buffer is refused, not a crash
+    assert loop.execute("boardsize 21")[0] is False and loop.agent.size == 9
+    launches = {**TA.LAUNCHES, **LK.LAUNCHES, **FK.LAUNCHES}
+    for k in ("step_and_analyze", "board_analysis", "ladder_prep", "run_greedy", "flood",
+              "chain_labels"):
+        assert launches[k] > 0, k
+    env = GoEnv(n=9)
+    s = env.new_batch(1, device="cpu")
+    for color, v in loop.agent.moves:
+        assert int(s.to_move[0]) == color
+        assert bool(env.legal_action_mask(s)[0, v]) or v == 81
+        s = env.step(s, torch.tensor([v], dtype=torch.int32))

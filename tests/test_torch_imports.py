@@ -40,6 +40,12 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.selfplay.pipe",
     "sayuri_tpu_torch.config",
     "sayuri_tpu_torch.__main__",
+    "sayuri_tpu_torch.mcts.hygiene",
+    "sayuri_tpu_torch.game.book",
+    "sayuri_tpu_torch.gtp",
+    "sayuri_tpu_torch.gtp.time_control",
+    "sayuri_tpu_torch.gtp.engine",
+    "sayuri_tpu_torch.gtp.loop",
 ]
 
 CHECK = """

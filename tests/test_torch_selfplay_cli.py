@@ -3,8 +3,7 @@
 - its Options parse the repo's three configs/*.txt (and flag spellings:
   aliases, --no-X, --no-cache, --cache-memory-mib) into the same search and
   self-play fields as the JAX package's Options;
-- a flag the selfplay mode does not read yet raises, and so do the modes
-  that are not ported;
+- a flag the mode does not read yet raises, and so does an unknown mode;
 - `--mode selfplay` at 5x5 on the CPU writes tdata / vdata chunks, SGFs
   and net_queries, with a v5 weight file in --weights-dir;
 - fair komi set through the randomizer (a handicap query) gives the JAX
@@ -61,13 +60,18 @@ def test_options_match_jax(argv):
 
 
 def test_unsupported_flags_and_modes_raise(tmp_path):
+    """A flag a mode does not read raises (the gtp and benchmark modes are
+    ported; the first-pass bonus reaches the search config); an unknown
+    mode or option raises."""
     with pytest.raises(ValueError, match="--policy-temp"):
         CLI.main(["--mode", "selfplay", "--policy-temp", "0.5"], device="cpu")
-    with pytest.raises(ValueError, match="first-pass-bonus"):
-        Options().parse_args(["--first-pass-bonus"]).search_config()
-    for mode in ("gtp", "benchmark"):
-        with pytest.raises(SystemExit, match="not ported"):
-            CLI.main(["--mode", mode], device="cpu")
+    assert Options().parse_args(["--first-pass-bonus"]).search_config().first_pass_bonus
+    with pytest.raises(ValueError, match="--patterns"):
+        CLI.main(["--mode", "gtp", "--patterns", "p.txt"], device="cpu")
+    with pytest.raises(ValueError, match="--num-games"):
+        CLI.main(["--mode", "benchmark", "--num-games", "3"], device="cpu")
+    with pytest.raises(SystemExit, match="unknown mode"):
+        CLI.main(["--mode", "train"], device="cpu")
     with pytest.raises(ValueError, match="unknown option"):
         Options().parse_args(["--no-such-flag", "1"])
 

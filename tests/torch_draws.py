@@ -74,11 +74,11 @@ class Draws:
         mp.setattr(TC.MCTS, "_sample_dirichlet", lambda m, g, p: self.t_dirichlet(m, g, p))
 
 
-# the port's tree arrays (the JAX tree's parent_action, net_score, valid,
-# black_sb and root_gumbel are written there but read by nothing of the
-# search or the actor at its default of fresh noise per selection)
-TREE_ARRAYS = ("prior", "child", "parent", "stats", "terminal", "next_free", "root_noise",
-               "root_ownership", "score_center", "use_noise", "use_gumbel")
+# the port's tree arrays (the JAX tree's parent_action, net_score, valid
+# and root_gumbel are written there but read by nothing of the search or
+# the actor at its default of fresh noise per selection)
+TREE_ARRAYS = ("prior", "child", "parent", "stats", "terminal", "black_sb", "next_free",
+               "root_noise", "root_ownership", "score_center", "use_noise", "use_gumbel")
 
 
 def assert_trees_equal(jtree, ttree, atol=1e-5, tag="", rtol=1e-6):
