@@ -110,8 +110,27 @@ no result line):
     kernel is held against its plain twin and timed there. Last, ``--mode benchmark --benchmark-query
     bg:16:32`` prints its line.
 
+15. train: (a) one b6c96 SGD step at batch 256 (a batch of phase 13's
+    9x9 / 7x7 chunks in the 19x19 buffer) on the card and on the CPU from
+    the same seeded weights, f32 with TF32 off: loss parts within 1e-4
+    relative, parameters and running statistics after the step within 1e-4;
+    (b) ``python -m sayuri_tpu_torch.tools.train_worker`` on a setting.json
+    it writes (b6c96, MaxBoardSize 19, BatchSize 256, TrainDirectory =
+    phase 13's tdata) with --max-steps 64: 64 finite training.log lines, the
+    checkpoint, v5 and SWA v5 files, the v5 file read back through
+    load_checkpoint_for_inference gives the trainer's eval-mode heads within
+    1e-4 on the card, a second invocation resumes at step 64; (c) ``bench
+    train`` on the same chunks: ms a step and samples/s of the step alone,
+    samples/s through the loader and the share of the wall time the step
+    loop waits on it; (d) ``python -m sayuri_tpu_torch.tools.rl_loop`` on the
+    card, two 7x7 rounds of 8 games at 16/8 playouts and 8 steps of batch
+    64: round 2's actor loads round 1's gated .ckpt, the self-play kernels
+    launch, the plain functions raise on a CUDA tensor meanwhile, and every
+    kernel is held against its plain twin at each shape the loop gave it
+    (the kernels line carries `rl_launches` and `rl_by_shape`).
+
 Launch counters are set to 0 right before each main path (phases 5, 8-11,
-13, 14) and read right after it. The second-to-last line is the kernels JSON
+13, 14, 15(d)) and read right after it. The second-to-last line is the kernels JSON
 (all eight kernels: launches on their path, max abs error against the plain
 version, kernel and plain ms, the bound, library call; the self-play and
 GTP launches and shapes); the last line is {"ok": true, "device": {...}}.
@@ -698,6 +717,182 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
     if not re.match(r"batch 16 x 32 playouts: [0-9.]+ p/s", line) or not rates[0] > 0:
         raise RuntimeError(f"benchmark mode printed {line!r}")
     print(f"benchmark mode: {line}  [{card}]")
+    return launches, shapes
+
+
+# phase 15: the trainer on phase 13's chunks, the train worker, bench
+# train, the RL loop
+TRAIN_TOL = 1e-4       # card step vs CPU step, f32 with TF32 off: sums in another order
+TRAIN_SEED = 5
+WORKER_STEPS = 64
+RL_ARGS = ["--rounds", "2", "--boardsize", "7", "--games-per-round", "8",
+           "--parallel-games", "8", "--playouts", "16", "--fast-playouts", "8",
+           "--steps-per-round", "8", "--batch-size", "64"]
+
+
+def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need):
+    """Phase 15. (a) One b6c96 SGD step at batch 256 (a batch of phase 13's
+    chunks in the 19x19 buffer) on the card and on the CPU from the same
+    seeded weights: loss parts within TRAIN_TOL relative, parameters and
+    running statistics after the step within TRAIN_TOL absolute. (b)
+    ``python -m sayuri_tpu_torch.tools.train_worker`` on a setting.json of
+    b6c96 at 19x19, batch 256, TrainDirectory = phase 13's tdata,
+    ``--max-steps 64``: 64 finite training.log lines; the checkpoint, v5 and
+    SWA v5 files; the v5 file read back through load_checkpoint_for_inference
+    gives the trainer's eval-mode heads within TRAIN_TOL on the card; a
+    second invocation resumes at step 64. (c) ``bench train`` on the same
+    chunks: the step alone, the loader alone, and the steps fed by the
+    loader at the default and at a short thread switch interval. (d) ``python -m
+    sayuri_tpu_torch.tools.rl_loop`` with RL_ARGS on the card: round 2's
+    actor loads round 1's gated .ckpt, the self-play kernels launch, the
+    plain functions raise on a CUDA tensor meanwhile, and every kernel is
+    held against its plain twin at the shapes the loop gave it. Returns
+    (launches of (d), shapes of (d))."""
+    import math
+    import os
+
+    from sayuri_tpu_torch import bench
+    from sayuri_tpu_torch.models.network import NetConfig
+    from sayuri_tpu_torch.models.weights_io import load_checkpoint_for_inference
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
+    from sayuri_tpu_torch.tools import rl_loop, train_worker
+    from sayuri_tpu_torch.train import dataset as DS
+    from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
+
+    tdata = out_dir / "tdata"
+    t_phase = time.monotonic()
+
+    # (a) the card's step against the CPU's
+    files, n_all = DS.select_window_chunks(str(tdata))
+    loader = DS.ChunkLoader(files, nn_size=19, batch_size=256, down_sample_rate=1,
+                            policy_surprise_factor=0.0, shuffle_capacity=256, seed=0)
+    try:
+        planes, targets = next(iter(loader))
+    finally:
+        loader.close()
+    boards = planes[..., 42].reshape(256, -1).sum(1)
+    t0 = time.monotonic()
+    trainers = {d: Trainer(NetConfig(), TrainConfig(), seed=TRAIN_SEED, device=d)
+                for d in ("cpu", dev)}
+    parts = {d: t.train_batch(planes, targets) for d, t in trainers.items()}
+    torch.cuda.synchronize()
+    worst = {"loss parts (relative)": 0.0, "parameters": 0.0, "statistics": 0.0}
+    for k, want in parts["cpu"].items():
+        rel = abs(parts[dev][k] - want) / max(abs(want), 1e-6)
+        worst["loss parts (relative)"] = max(worst["loss parts (relative)"], rel)
+    for tag, get in (("parameters", "unreplicated_params"),
+                     ("statistics", "unreplicated_batch_stats")):
+        want, got = getattr(trainers["cpu"], get)(), getattr(trainers[dev], get)()
+        for k in want:
+            worst[tag] = max(worst[tag], (got[k].cpu() - want[k]).abs().max().item())
+    print(f"train step, b6c96 SGD batch 256 (phase 13's chunks: {int(boards.min())}-"
+          f"{int(boards.max())} on-board cells a position in the 19x19 buffer), card vs "
+          f"CPU, f32 TF32 off: loss {parts[dev]['loss']:.6f} vs {parts['cpu']['loss']:.6f}; "
+          f"max error {worst} (bound {TRAIN_TOL}); {time.monotonic() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in parts[dev].values()) or max(worst.values()) > TRAIN_TOL:
+        raise RuntimeError(f"train step: card and CPU disagree: {worst}")
+    del trainers
+
+    # (b) the train worker
+    tw = work / "train-worker"
+    tw.mkdir()
+    setting = {
+        "NeuralNetwork": {"MaxBoardSize": 19, "ResidualChannels": 96,
+                          "PolicyHeadChannels": 32, "ValueHeadChannels": 32,
+                          "Stack": list(NetConfig().stack), "SeRatio": 4},
+        "Train": {"BatchSize": 256, "LearningRateSchedule": [[0, 0.005]], "SwaSteps": 16,
+                  "VerboseSteps": 16, "ValidationSteps": 4, "TrainDirectory": str(tdata),
+                  "ValidationDirectory": str(out_dir / "vdata"), "StorePath": "store"},
+    }
+    (tw / "setting.json").write_text(json.dumps(setting))
+    argv = ["-j", str(tw / "setting.json"), "-w", str(tw)]
+    t0 = time.monotonic()
+    trainer = train_worker.main(argv + ["--max-steps", str(WORKER_STEPS)])
+    torch.cuda.synchronize()
+    worker_s = time.monotonic() - t0
+    store = tw / "store"
+    lines = (store / "training.log").read_text().splitlines()
+    values = [float(kv.split("=")[1]) for ln in lines for kv in ln.split()[1:]]
+    if len(lines) != WORKER_STEPS or not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"training.log: {len(lines)} lines, finite {all(map(math.isfinite, values))}")
+    name = trainer.checkpoint_name(num_chunks=n_all, window=len(files))
+    stored = [store / f"checkpoint/{name}.ckpt", store / f"weights/{name}.bin.txt",
+              store / f"swa/{name}-swa.bin.txt"]
+    missing = [str(f) for f in stored if not f.is_file()]
+    if missing or trainer.steps != WORKER_STEPS:
+        raise RuntimeError(f"train worker: steps {trainer.steps}, missing {missing}")
+    _, net = load_checkpoint_for_inference(str(stored[1]), boardsize=19)
+    net = net.to(dev)
+    trainer.net.eval()
+    x = torch.as_tensor(planes[:64], device=dev)
+    with torch.no_grad():
+        want, got = trainer.net(x), net(x)
+    v5_err = max((got[k] - want[k]).abs().max().item() for k in want)
+    if v5_err > TRAIN_TOL:
+        raise RuntimeError(f"v5 file of the trained net: heads differ by {v5_err}")
+    resumed = train_worker.main(argv + ["--max-steps", "1"])
+    last = (store / "training.log").read_text().splitlines()[-1]
+    if resumed.steps != WORKER_STEPS + 1 or not last.startswith(f"step={WORKER_STEPS + 1} "):
+        raise RuntimeError(f"second worker run: steps {resumed.steps}, last line {last[:40]}")
+    vlog = (store / "validation.log").read_text().splitlines() \
+        if (store / "validation.log").exists() else []
+    print(f"train worker: {WORKER_STEPS} steps of b6c96 batch 256 in {worker_s:.1f} s "
+          f"({WORKER_STEPS * 256 / worker_s:.1f} samples/s with start-up and storing) "
+          f"[{card}]; loss {lines[0].split()[1]} -> {lines[-1].split()[1]}; stored "
+          f"{', '.join(f.name for f in stored)}; v5 heads within {v5_err:.3g} of the "
+          f"trainer's; {len(vlog)} validation lines; a second run resumed at step "
+          f"{WORKER_STEPS} and wrote step {resumed.steps}")
+    del trainer, resumed, net
+
+    # (c) bench train
+    res = bench.bench_train(chunks=tdata, device=dev)
+    print(f"{bench.TRAIN_METRIC}: step alone {res['step_ms']:.3f} ms a step, "
+          f"{res['step_samples_per_s']:.1f} samples/s (b6c96 19x19 batch 256 SGD f32 TF32 "
+          f"off, {res['steps']} steps after 5)  [{card}]")
+    print(f"train through the loader ({res['chunks']} chunks of {res['chunk_boards']} boards "
+          f"in the 19x19 buffer): loader alone {res['loader_alone_samples_per_s']:.1f} "
+          f"samples/s; "
+          + "; ".join(f"{label}: {res[k + '_samples_per_s']:.1f} samples/s, "
+                      f"{res[k + '_step_ms']:.3f} ms a step of which "
+                      f"{res[k + '_train_ms']:.3f} in train_batch, waiting on the loader "
+                      f"{100 * res[k + '_wait_share']:.1f}% of the wall time"
+                      for label, k in (("fed, 5 ms switch interval", "loader"),
+                                       ("fed, 0.5 ms", "loader_fast_switch")))
+          + f"  [{card}]")
+    print(f"train step alone under the profiler: card busy {res['device_busy_ms']:.3f} ms a "
+          f"step, idle share {res['device_idle_share']:.4f}, {res['launches_a_step']:.0f} "
+          f"launches a step; top kernels (ms a step) "
+          f"{[(n[:60], round(t, 3)) for n, t in res['top_kernels_ms']]}  [{card}]")
+
+    # (d) the RL loop
+    spy = KernelSpy(TA, LK, FK, late=True)
+    spy.install()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        with PlainGuard():
+            rounds = rl_loop.main(["--workdir", str(work / "rl")] + RL_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        spy.remove()
+    rl_s = time.monotonic() - t0
+    launches = counts()
+    gated = str(work / "rl" / "weights" / os.path.basename(rounds[0]["checkpoint"]))
+    if rounds[0]["actor_weights"] is not None or rounds[1]["actor_weights"] != gated:
+        raise RuntimeError(f"RL loop: actors loaded {[r['actor_weights'] for r in rounds]}, "
+                           f"round 1 gated {gated}")
+    need(launches, "RL loop", some=("step_and_analyze", "board_analysis", "ladder_prep",
+                                    "run_greedy", "run_chases", "flood", "chain_labels"))
+    for r in rounds:
+        print(f"RL loop round: {r['games']} games, {r['steps']} steps, loss {r['loss']:.4f}, "
+              f"self-play {r['selfplay_s']:.1f} s, training {r['train_s']:.1f} s, actor "
+              f"{os.path.basename(r['actor_weights'] or 'weightless')}  [{card}]")
+    print(f"RL loop: 2 rounds in {rl_s:.1f} s; round 2's actor loaded round 1's "
+          f"{os.path.basename(gated)}; launches {({k: v for k, v in launches.items() if v})}")
+    shapes = check_shapes(torch, card, spy, "RL loop", lambda k, n: f"launch {k} of {n}")
+    print(f"train phase: {time.monotonic() - t_phase:.1f} s")
     return launches, shapes
 
 
@@ -1471,8 +1666,16 @@ def main():
     phase("GTP")
     gtp_launches, gtp_shapes = run_gtp_phase(
         torch, dev, card, wfile, work, reset_counts, counts, need)
-    shutil.rmtree(work, ignore_errors=True)
     phase_done("GTP")
+
+    # ---- 15. train ----
+    phase("train")
+    try:
+        rl_launches, rl_shapes = run_train_phase(
+            torch, dev, card, out_dir, work, reset_counts, counts, need)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_done("train")
 
     # ---- result ----
     kernels = []
@@ -1506,6 +1709,8 @@ def main():
             "selfplay_by_shape": sp_shapes.get(name, []),
             "gtp_launches": gtp_launches[name],
             "gtp_by_shape": gtp_shapes.get(name, []),
+            "rl_launches": rl_launches[name],
+            "rl_by_shape": rl_shapes.get(name, []),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,23 @@ B=1 playouts/s and seconds a playout, and the median seconds of a genmove
 that searches a new tree (``gtp_fresh_genmove_s_19x19_b6c96``: its
 playouts do not depend on how much of the last tree a move kept).
 
+    python -m sayuri_tpu_torch.bench train [--chunks DIR]
+
+times the trainer: b6c96 (``NetConfig()``) in the 19x19 buffer, batch 256
+(the TrainConfig default), SGD, f32 with TF32 off (the bench sets the two
+flags and restores them). Step alone: 5 warm-up and 50 timed steps on one
+seeded batch of full 19x19 boards resident on the card; its samples/s is
+``train_samples_per_s_19x19_b6c96``. Three more steps under torch.profiler
+give the card's busy ms a step (union of kernel intervals), its idle share
+of the unprofiled step, launches a step and the top kernels. With
+``--chunks``, ``ChunkLoader`` over the chunks under DIR with train_worker's
+loader settings (LoopSetting defaults), after 5 warm-up steps, gives three
+more readings, beside the board sizes its batches held: the loader alone
+(20 batches drained with no step), the 50 steps fed by it (samples/s, the
+share of the wall time the step loop waits on it, ms a step inside
+train_batch), and 20 more steps with the interpreter's thread switch
+interval at 0.5 ms instead of 5 ms. Prints ONE JSON line.
+
     python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
 
 times the board and ladder kernels built from another csrc/ tree (an
@@ -72,6 +89,10 @@ ENV_METRIC = "env_steps_per_s_19x19"
 SELFPLAY_METRIC = "selfplay_positions_per_s_19x19_b6c96"
 GTP_METRIC = "gtp_genmove_s_19x19_b6c96"
 GTP_FRESH_METRIC = "gtp_fresh_genmove_s_19x19_b6c96"
+TRAIN_METRIC = "train_samples_per_s_19x19_b6c96"
+PROFILED_STEPS = 3
+LOADER_SIDE_STEPS = 20          # the loader alone, and fed at FAST_SWITCH_S
+FAST_SWITCH_S = 0.0005          # a tenth of CPython's default switch interval
 _M32 = 0xFFFFFFFF
 
 
@@ -319,6 +340,145 @@ def bench_selfplay(batch: int = 256, moves: int = 8, device="cuda", seed: int = 
             "nn_cache_size": actor.mcts.cfg.nn_cache_size}
 
 
+def train_batch_seeded(batch: int):
+    """A seeded numpy training batch of full 19x19 boards in the layout
+    ``dataset.wrap_sample`` gives (binary planes, scalar planes, mask;
+    normalised policies, ownership, one-hot wdl, q values, scores)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    n = 19
+    hw = n * n
+    planes = (rng.rand(batch, n, n, 43) < 0.3).astype(np.float32)
+    planes[..., 37:42] = rng.normal(size=(batch, 1, 1, 5))
+    planes[..., 42] = 1.0
+    prob = rng.rand(2, batch, hw + 1).astype(np.float32) ** 8
+    prob /= prob.sum(-1, keepdims=True)
+    wdl = np.eye(3, dtype=np.float32)[rng.randint(0, 3, batch)]
+    return planes, {
+        "prob": prob[0], "aux_prob": prob[1],
+        "ownership": rng.choice([-1.0, 1.0], (batch, hw)).astype(np.float32),
+        "wdl": wdl,
+        "q_vals": rng.uniform(-1, 1, (batch, 5)).astype(np.float32),
+        "scores": rng.normal(0, 10, (batch, 5)).astype(np.float32),
+        "global_weight": np.ones(batch, np.float32),
+    }
+
+
+def bench_train(chunks=None, device="cuda", batch: int = 256, warmup: int = 5,
+                steps: int = 50):
+    """Time the b6c96 trainer at 19x19 (SGD, f32, TF32 off): `steps` steps
+    on one device-resident batch after `warmup`, then, when `chunks` (a
+    directory) is given, ChunkLoader with train_worker's settings after
+    `warmup` steps: the loader alone, `steps` steps fed by it, and steps
+    fed by it at a short thread switch interval. Returns a dict."""
+    import numpy as np
+
+    from sayuri_tpu_torch.models.network import NetConfig
+    from sayuri_tpu_torch.train import dataset as DS
+    from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
+    from sayuri_tpu_torch.train.setting import LoopSetting
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        trainer = Trainer(NetConfig(), TrainConfig(batch_size=batch), seed=0, device=device)
+        planes, targets = train_batch_seeded(batch)
+        planes = torch.as_tensor(planes, device=device)
+        targets = {k: torch.as_tensor(v, device=device) for k, v in targets.items()}
+        for _ in range(warmup):
+            trainer.train_batch(planes, targets)
+        _sync(device)
+        t0 = time.monotonic()
+        for _ in range(steps):
+            parts = trainer.train_batch(planes, targets)
+        _sync(device)
+        dt = time.monotonic() - t0
+        res = {"step_ms": 1e3 * dt / steps, "step_samples_per_s": batch * steps / dt,
+               "loss": parts["loss"], "batch": batch, "steps": steps}
+        if torch.device(device).type == "cuda":
+            # a short window under the profiler: the device's busy time a step
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILED_STEPS):
+                    trainer.train_batch(planes, targets)
+                _sync(device)
+            kernels, busy = _device_kernels(prof.events())
+            per = {}
+            for e in kernels:
+                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            res.update(device_busy_ms=busy / 1e3 / PROFILED_STEPS,
+                       device_idle_share=1.0 - busy / 1e3 / PROFILED_STEPS / res["step_ms"],
+                       launches_a_step=len(kernels) / PROFILED_STEPS,
+                       top_kernels_ms=sorted(((n, t / PROFILED_STEPS) for n, t in per.items()),
+                                             key=lambda kv: -kv[1])[:6])
+        if chunks is None:
+            return res
+        loop = LoopSetting()
+        files, _ = DS.select_window_chunks(str(chunks))
+        loader = DS.ChunkLoader(files, nn_size=19, batch_size=batch,
+                                down_sample_rate=loop.down_sample_rate,
+                                policy_surprise_factor=loop.policy_surprise_factor,
+                                shuffle_capacity=max(256, loop.buffer_size // 64),
+                                virtual_buffsize=64, seed=0)
+        side = min(steps, LOADER_SIDE_STEPS)
+        switch = sys.getswitchinterval()
+        try:
+            it = iter(loader)
+            for _ in range(warmup):
+                trainer.train_batch(*next(it))
+            _sync(device)
+            t0 = time.monotonic()
+            drained = [next(it) for _ in range(side)]
+            res["loader_alone_samples_per_s"] = batch * side / (time.monotonic() - t0)
+            cells = np.concatenate([p[..., -1].sum((1, 2)) for p, _ in drained])
+            res["chunk_boards"] = sorted({int(round(float(c) ** 0.5)) for c in cells})
+            del drained
+            for key, n, interval in (("loader", steps, switch),
+                                     ("loader_fast_switch", side, FAST_SWITCH_S)):
+                sys.setswitchinterval(interval)
+                wait = 0.0
+                t0 = time.monotonic()
+                for _ in range(n):
+                    t1 = time.monotonic()
+                    batch_np = next(it)
+                    wait += time.monotonic() - t1
+                    trainer.train_batch(*batch_np)
+                _sync(device)
+                dt = time.monotonic() - t0
+                res.update({f"{key}_samples_per_s": batch * n / dt,
+                            f"{key}_wait_share": wait / dt,
+                            f"{key}_step_ms": 1e3 * dt / n,
+                            f"{key}_train_ms": 1e3 * (dt - wait) / n})
+        finally:
+            sys.setswitchinterval(switch)
+            loader.close()
+        return dict(res, chunks=len(files))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _device_kernels(events, skip=None):
+    """The profiler's device kernels sorted by start (user ranges, and names
+    starting with `skip`, left out) and their busy time in us: the union
+    of their intervals."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(
+        (e for e in events if e.device_type == cuda
+         and not (skip and e.name.startswith(skip))
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda e: e.time_range.start,
+    )
+    busy, end = 0.0, float("-inf")
+    for e in kernels:
+        s, t = e.time_range.start, e.time_range.end
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return kernels, busy
+
+
 def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
                      trace: str | None = None, top: int = 12, seed: int = 0):
     """One search after a warm-up one, timed without the profiler, then one
@@ -356,20 +516,11 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
         (e for e in events if e.device_type == cuda and e.name.startswith("mcts.")),
         key=lambda e: e.time_range.start,
     )
-    kernels = sorted(
-        (e for e in events if e.device_type == cuda
-         and not e.name.startswith("mcts.")
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda e: e.time_range.start,
-    )
+    kernels, busy = _device_kernels(events, skip="mcts.")
     starts = [r.time_range.start for r in ranges]
-    busy, end = 0.0, float("-inf")
     per_kernel, per_stage = {}, {}
     for e in kernels:
-        s, t = e.time_range.start, e.time_range.end
-        if t > end:
-            busy += t - max(s, end)
-            end = t
+        s = e.time_range.start
         us = e.time_range.elapsed_us()
         total, count = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (total + us, count + 1)
@@ -594,6 +745,17 @@ def main():
             "fresh_seconds": res["fresh_seconds"],
             "fresh_moves": res["fresh_moves"],
             "fresh_playouts": res["fresh_playouts"],
+            "device": device_info(),
+        }))
+        return
+    if args and args[0] == "train":
+        chunks = args[2] if args[1:2] == ["--chunks"] else None
+        res = bench_train(chunks=chunks)
+        print(json.dumps({
+            "metric": TRAIN_METRIC,
+            "value": res["step_samples_per_s"],
+            "unit": "samples/s",
+            **res,
             "device": device_info(),
         }))
         return

@@ -80,7 +80,11 @@ def make_eval_fn(
     `suppress_pass_factor`: pass leaves the priors while more than
     (1 - factor) * size^2 legal board moves remain; 0 turns it off.
     `use_stm_winrate`: the value from the net's side-to-move winrate head,
-    (q_vals[:, 0] + 1) / 2, instead of (wdl_win - wdl_loss + 1) / 2."""
+    (q_vals[:, 0] + 1) / 2, instead of (wdl_win - wdl_loss + 1) / 2.
+    `net` must be in eval() mode: in train() mode its batch norm would
+    normalise over each query batch and rewrite the running statistics."""
+    if net.training:
+        raise ValueError("make_eval_fn needs the net in eval() mode")
     if ladder_mode not in ("full", "root", "off"):
         raise ValueError(f"ladder_mode {ladder_mode!r}: use 'full', 'root' or 'off'")
     if not (symmetry in ("random", "average")

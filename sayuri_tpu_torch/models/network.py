@@ -1,10 +1,14 @@
 """Masked policy/value ResNet as a PyTorch ``nn.Module`` (port of
-sayuri_tpu.models.network for inference).
+sayuri_tpu.models.network).
 
 - every conv output is multiplied by the on-board mask (mixed board sizes
   share one fixed buffer);
-- BatchNorm runs in inference form: the running statistics folded into one
-  per-channel multiply-add, then the mask;
+- BatchNorm in ``eval()`` runs in inference form: the running statistics
+  folded into one per-channel multiply-add, then the mask; in ``train()``
+  it is masked batch renorm (statistics over on-board cells only, r and d
+  clipped by ``renorm_max_r`` / ``renorm_max_d``, running statistics
+  updated with momentum 0.01 * sqrt(B / 256));
+- the error head's softplus has KataGo's gradient floor;
 - GlobalPool = concat(mean, mean*(sqrt(hw)-14)/10, max) for the policy
   head and SE, with the board-size polynomial variant for the value head;
 - blocks: ResidualBlock and ResidualBlock-SE (the default b6c96 stack);
@@ -30,6 +34,9 @@ import torch.nn.functional as F
 CRAZY_NEGATIVE_VALUE = -5000.0
 B_AVG = (19 + 9) / 2
 B_VARIANCE = 0.1
+# running statistics' momentum, scaled by sqrt(batch / BN_BASIC_BATCH)
+BN_MOMENTUM = 0.01
+BN_BASIC_BATCH = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +59,8 @@ class NetConfig:
     value_head_channels: int = 32
     policy_head_type: str = "Normal"
     activation: str = "relu"
+    renorm_max_r: float = 1.0
+    renorm_max_d: float = 0.0
     value_misc: int = 15
     policy_outs: int = 5
 
@@ -72,19 +81,44 @@ def act_fn(name: str):
     return _ACTS[name]
 
 
-class MaskedBatchNorm(nn.Module):
-    """Inference-mode masked batch norm: x * rsqrt(var + eps) * gamma +
-    (beta - mean * scale), then times the mask."""
+class _SoftplusGradientFloor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.square(F.softplus(0.5 * x))
 
-    def __init__(self, features: int, use_gamma: bool, eps: float = 1e-5):
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (0.05 + 0.95 * torch.sigmoid(x))
+
+
+def softplus_with_gradient_floor(x):
+    """KataGo's SoftPlusWithGradientFloor, squared variant: forward
+    softplus(x / 2)^2; backward g * (0.05 + 0.95 * sigmoid(x)), which is not
+    the forward's derivative: the gradient never falls below 0.05."""
+    return _SoftplusGradientFloor.apply(x)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Masked batch norm. Inference (``eval()``): x * rsqrt(var + eps) *
+    gamma + (beta - mean * scale), then times the mask. Training: masked
+    batch renorm, r in [1/rmax, rmax] and d in [-dmax, dmax] (rmax=1, dmax=0
+    is plain masked batch norm)."""
+
+    def __init__(self, features: int, use_gamma: bool, eps: float = 1e-5,
+                 rmax: float = 1.0, dmax: float = 0.0):
         super().__init__()
         self.eps = eps
+        self.rmax, self.dmax = rmax, dmax
         self.beta = nn.Parameter(torch.zeros(features))
         self.gamma = nn.Parameter(torch.ones(features)) if use_gamma else None
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x, mask):
+        if self.training:
+            return self._renorm(x, mask)
         scale = torch.rsqrt(self.var + self.eps)
         if self.gamma is not None:
             scale = scale * self.gamma
@@ -92,15 +126,37 @@ class MaskedBatchNorm(nn.Module):
         out = x * scale[None, :, None, None] + bias[None, :, None, None]
         return out * mask
 
+    def _renorm(self, x, mask):
+        xf = x.float()
+        # the divisor counts on-board cells only, not B * H * W
+        mask_sum = mask.float().sum()
+        mean = xf.sum((0, 2, 3)) / mask_sum
+        zm = (xf - mean[:, None, None]) * mask
+        var = torch.square(zm).sum((0, 2, 3)) / mask_sum
+        std = torch.sqrt(var + self.eps)
+        r_std = torch.sqrt(self.var + self.eps)
+        r = torch.clamp(std.detach() / r_std, 1.0 / self.rmax, self.rmax)
+        d = torch.clamp((mean.detach() - self.mean) / r_std, -self.dmax, self.dmax)
+        out = (xf - mean[:, None, None]) / std[:, None, None] * r[:, None, None] \
+            + d[:, None, None]
+        m = BN_MOMENTUM * math.sqrt(x.shape[0] / BN_BASIC_BATCH)
+        with torch.no_grad():
+            self.mean.add_(m * (mean - self.mean))
+            self.var.add_(m * (var - self.var))
+        if self.gamma is not None:
+            out = out * self.gamma[:, None, None]
+        out = out + self.beta[:, None, None]
+        return (out * mask).to(x.dtype)
+
 
 class ConvBlock(nn.Module):
     """conv (no bias) -> *mask -> BN -> act."""
 
     def __init__(self, cin: int, cout: int, kernel: int, use_gamma: bool,
-                 activation: str):
+                 activation: str, rmax: float = 1.0, dmax: float = 0.0):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False)
-        self.bn = MaskedBatchNorm(cout, use_gamma)
+        self.bn = MaskedBatchNorm(cout, use_gamma, rmax=rmax, dmax=dmax)
         self.act = act_fn(activation)
 
     def forward(self, x, mask):
@@ -149,10 +205,11 @@ class SqueezeExcite(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, features: int, se_size: int | None, activation: str):
+    def __init__(self, features: int, se_size: int | None, activation: str,
+                 rmax: float = 1.0, dmax: float = 0.0):
         super().__init__()
-        self.conv1 = ConvBlock(features, features, 3, False, activation)
-        self.conv2 = ConvBlock(features, features, 3, True, "identity")
+        self.conv1 = ConvBlock(features, features, 3, False, activation, rmax, dmax)
+        self.conv2 = ConvBlock(features, features, 3, True, "identity", rmax, dmax)
         self.se = (
             SqueezeExcite(features, se_size, activation) if se_size else None
         )
@@ -172,7 +229,8 @@ def _parse_block(spec: str, cfg: NetConfig):
             f"block {spec!r}: only ResidualBlock and ResidualBlock-SE are ported"
         )
     se_size = cfg.residual_channels // cfg.se_ratio if "SE" in parts else None
-    return ResidualBlock(cfg.residual_channels, se_size, cfg.activation)
+    return ResidualBlock(cfg.residual_channels, se_size, cfg.activation,
+                         cfg.renorm_max_r, cfg.renorm_max_d)
 
 
 class SayuriNet(nn.Module):
@@ -194,14 +252,14 @@ class SayuriNet(nn.Module):
         self.cfg = cfg
         c, pc, vc = (cfg.residual_channels, cfg.policy_head_channels,
                      cfg.value_head_channels)
-        a = cfg.activation
-        self.input_conv = ConvBlock(cfg.input_channels, c, 3, True, a)
+        a, rd = cfg.activation, (cfg.renorm_max_r, cfg.renorm_max_d)
+        self.input_conv = ConvBlock(cfg.input_channels, c, 3, True, a, *rd)
         self.tower = nn.ModuleList(_parse_block(s, cfg) for s in cfg.stack)
-        self.policy_conv = ConvBlock(c, pc, 1, False, a)
+        self.policy_conv = ConvBlock(c, pc, 1, False, a, *rd)
         self.policy_inter = Dense(3 * pc, pc, a)
         self.pol_misc = nn.Conv2d(pc, cfg.policy_outs, 1)
         self.pol_pass = Dense(pc, cfg.policy_outs)
-        self.value_conv = ConvBlock(c, vc, 1, False, a)
+        self.value_conv = ConvBlock(c, vc, 1, False, a, *rd)
         self.value_inter = Dense(3 * vc, 3 * vc, a)
         self.ownership_conv = nn.Conv2d(vc, 1, 1)
         self.value_misc = Dense(3 * vc, cfg.value_misc)
@@ -254,7 +312,7 @@ class SayuriNet(nn.Module):
             (self.ownership_conv(val) * mask).reshape(b, hw).float()
         )
         val_misc = self.value_misc(val_inter).float()
-        errors = torch.square(F.softplus(0.5 * val_misc[:, 13:15]))
+        errors = softplus_with_gradient_floor(val_misc[:, 13:15])
         return {
             "prob": pol_all[:, :, 0],
             "aux_prob": pol_all[:, :, 1],

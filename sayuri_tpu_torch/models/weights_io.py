@@ -12,7 +12,8 @@ parameters }``) is what the trainer and the engine exchange:
 - ``export_reference_weights(net, filename)`` writes the port's net;
 - ``import_reference_weights(filename)`` parses a file into
   (NetConfig, state dict); ``finalize_imported_variables`` builds the net;
-- ``load_checkpoint_for_inference(path)`` does both for a v5 file.
+- ``load_checkpoint_for_inference(path)`` does both for a v5 file, and
+  reads the net of the port's trainer checkpoint (``.ckpt``).
 
 The layers are linearized in the reference collector's order
 (``layer_plan``: input conv, tower sublayers, policy head, value head).
@@ -20,7 +21,8 @@ Batch norms are stored merged ((x - mean) / std with gamma and beta folded
 in); on import they land in the running statistics with identity gamma and
 zero beta, which gives the same inference. Only the blocks the port's net
 has are read and written: ResidualBlock with or without SE, and the Normal
-policy head. A trainer checkpoint (.ckpt, a flax msgpack blob) is not read.
+policy head. The JAX package's trainer checkpoint (a pickled flax msgpack
+blob) is not read: it is refused with a message that names it.
 """
 
 from __future__ import annotations
@@ -293,11 +295,22 @@ def finalize_imported_variables(cfg: NetConfig, state_dict, boardsize=None):
 
 
 def load_checkpoint_for_inference(path: str, boardsize=None):
-    """(NetConfig, SayuriNet) from a v5 weight file. A trainer checkpoint
-    (.ckpt) is refused: reading it comes with the trainer's port."""
+    """(NetConfig, SayuriNet in eval mode) from a v5 weight file or from the
+    port's trainer checkpoint (``.ckpt``: its parameters and running
+    statistics, not the SWA average). A JAX-package checkpoint is refused."""
     if str(path).endswith(".ckpt"):
-        raise ValueError(
-            f"{path}: trainer checkpoints (.ckpt, flax msgpack) are not readable by "
-            "the PyTorch port yet; export a v5 weight file instead")
+        with open(path, "rb") as f:
+            zipped = f.read(4) == b"PK\x03\x04"       # torch.save's zip container
+        if not zipped:
+            raise ValueError(
+                f"{path}: not a checkpoint of the PyTorch port's trainer (a JAX-package "
+                "trainer checkpoint, flax msgpack in a pickle, is not readable here); "
+                "export a v5 weight file from it instead")
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        over = {"boardsize": boardsize} if boardsize is not None else {}
+        cfg = NetConfig(**{**blob["net_cfg"], "stack": tuple(blob["net_cfg"]["stack"]), **over})
+        net = SayuriNet(cfg)
+        net.load_state_dict(blob["model"], strict=True)
+        return cfg, net.eval()
     cfg, sd = import_reference_weights(path)
     return finalize_imported_variables(cfg, sd, boardsize)

@@ -46,6 +46,14 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.gtp.time_control",
     "sayuri_tpu_torch.gtp.engine",
     "sayuri_tpu_torch.gtp.loop",
+    "sayuri_tpu_torch.train",
+    "sayuri_tpu_torch.train.loss",
+    "sayuri_tpu_torch.train.dataset",
+    "sayuri_tpu_torch.train.pipeline",
+    "sayuri_tpu_torch.train.setting",
+    "sayuri_tpu_torch.tools",
+    "sayuri_tpu_torch.tools.train_worker",
+    "sayuri_tpu_torch.tools.rl_loop",
 ]
 
 CHECK = """

@@ -83,8 +83,15 @@ def test_port_roundtrip_gives_the_same_net(weights, tmp_path):
 
 
 def test_refuses_checkpoints_and_unported_blocks(tmp_path):
+    # a JAX-package trainer checkpoint: a pickle holding flax msgpack bytes
+    # (the port's own .ckpt is read: test_torch_train_pipeline.py)
+    import pickle
+
+    ckpt = tmp_path / "trainer.ckpt"
+    ckpt.write_bytes(pickle.dumps({"state": b"\x85", "net_cfg": {}, "train_cfg": {},
+                                   "extra": {}}))
     with pytest.raises(ValueError, match="ckpt"):
-        TW.load_checkpoint_for_inference(str(tmp_path / "trainer.ckpt"))
+        TW.load_checkpoint_for_inference(str(ckpt))
     with pytest.raises(ValueError, match="BottleneckBlock"):
         TW.layer_plan(NetConfig(stack=("BottleneckBlock",)))
     with pytest.raises(ValueError, match="policy head"):
