@@ -129,8 +129,30 @@ no result line):
     kernel is held against its plain twin at each shape the loop gave it
     (the kernels line carries `rl_launches` and `rl_by_shape`).
 
+16. block families: the b6c96-mix net (``bench.NETS``: b6c96's width and
+    depth with the stack BottleneckBlock, NestedBottleneckBlock-SE,
+    MixerBlock, MixerBlockV2-SE, ResidualBlock, ResidualBlock-SE and a
+    32-channel RepLK policy head; seeded random weights). (a) f32 with TF32
+    off on the card and on the CPU over random planes of 19x19, 13x13 and
+    9x9 boards in the 19x19 buffer: every head within 1e-4 of the CPU's
+    (phase 7's bound), the max error of each printed. (b) bench_playouts on
+    b6c96-mix at B=256 x 96 playouts (bf16, root ladder planes), one
+    warm-up and three timed searches, alternated with the same bench on
+    b6c96 (mix, b6c96, b6c96, mix): around each mix run the counters show
+    step_and_analyze once a simulation and the ladder kernels once a search,
+    root visits = playouts + 1 and legal best moves; both rates and their
+    ratio. (c) The port's exporter writes the net as a v5 file, read back
+    through load_checkpoint_for_inference: heads within the same bound of
+    the source net on the card; the GTP CLI with configs/gtp-p400.txt on
+    that file answers one 19x19 genmove with "=". (d) One b6c96-mix SGD
+    step at batch 256 on phase 13's chunks, card vs CPU as in 15(a), then
+    ``bench train --net b6c96-mix``: ms a step of the step alone. (e)
+    ``bench profile --net b6c96-mix``: the device ms of the depthwise conv
+    blocks' convolutions (their merged kernel and the grouped conv), by
+    kernel, and their share of a search's busy time and wall.
+
 Launch counters are set to 0 right before each main path (phases 5, 8-11,
-13, 14, 15(d)) and read right after it. The second-to-last line is the kernels JSON
+13, 14, 15(d), each b6c96-mix run of 16(b)) and read right after it. The second-to-last line is the kernels JSON
 (all eight kernels: launches on their path, max abs error against the plain
 version, kernel and plain ms, the bound, library call; the self-play and
 GTP launches and shapes); the last line is {"ok": true, "device": {...}}.
@@ -523,6 +545,47 @@ class PlainGuard:
             setattr(mod, name, fn)
 
 
+def gtp_cli(torch, dev, args, script, stdin, out, tag, on_line=None):
+    """``--mode gtp ARGS`` through the CLI, reading `stdin` and printing into
+    `out`, with GtpLoop.execute wrapped to wait for the card after each
+    command and time each genmove (`on_line(line)` first, if given). Every
+    command of `script` must answer "=". Returns (the answers, [(command,
+    seconds, playouts)] of the genmoves)."""
+    import contextlib
+
+    from sayuri_tpu_torch import __main__ as CLI
+    from sayuri_tpu_torch.gtp import loop as GL
+
+    timed = []
+    real_execute = GL.GtpLoop.execute
+
+    def execute(self, line):
+        if on_line is not None:
+            on_line(line)
+        t0 = time.monotonic()
+        ok, body = real_execute(self, line)
+        torch.cuda.synchronize()
+        if line.split()[:1] == ["genmove"]:
+            timed.append((line, time.monotonic() - t0, self.agent.last_stats["playouts"]))
+        return ok, body
+
+    GL.GtpLoop.execute = execute
+    saved, sys.stdin = sys.stdin, stdin
+    try:
+        with contextlib.redirect_stdout(out):
+            CLI.main(["--mode", "gtp"] + args, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = saved
+        GL.GtpLoop.execute = real_execute
+    answers = [line for line in out.getvalue().split("\n") if line[:1] in ("=", "?")]
+    if len(answers) != len(script) or any(a[0] != "=" for a in answers):
+        bad = [(c, a) for c, a in zip(script, answers) if a[0] != "="]
+        raise RuntimeError(f"{tag}: {len(answers)} answers to {len(script)} commands, "
+                           f"failures {bad[:4]}")
+    return answers, timed
+
+
 def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
     """Phase 14. (a) `--mode gtp --config configs/gtp-p400.txt --weights
     F` through the CLI with stdin and stdout replaced: the admin commands,
@@ -544,27 +607,17 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
 
     from sayuri_tpu_torch import __main__ as CLI
     from sayuri_tpu_torch.config import Options
-    from sayuri_tpu_torch.gtp import loop as GL
     from sayuri_tpu_torch.ops import analysis as TA
     from sayuri_tpu_torch.ops import flood as FK
     from sayuri_tpu_torch.ops import ladder_kernel as LK
 
     kernels = ("step_and_analyze", "board_analysis", "ladder_prep", "flood", "chain_labels")
     spy = KernelSpy(TA, LK, FK, late=True)
-    timed = []                       # (command, seconds, playouts)
     analyze_started = threading.Event()
-    real_execute = GL.GtpLoop.execute
 
-    def execute(self, line):
-        words = line.split()
-        if words and words[0] == "kata-analyze":
+    def on_line(line):
+        if line.startswith("kata-analyze"):
             analyze_started.set()
-        t0 = time.monotonic()
-        ok, body = real_execute(self, line)
-        torch.cuda.synchronize()
-        if words and words[0] == "genmove":
-            timed.append((line, time.monotonic() - t0, self.agent.last_stats["playouts"]))
-        return ok, body
 
     genmoves = [f"genmove {'bw'[i % 2]}" for i in range(GTP_GENMOVES)]
     script = (["name", "list_commands", "boardsize 19", "clear_board"] + genmoves
@@ -592,31 +645,20 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
 
     spy.install()
     reset_counts()
-    GL.GtpLoop.execute = execute
     feeder = threading.Thread(target=writer, daemon=True)
     t0 = time.monotonic()
     try:
-        with PlainGuard(), contextlib.redirect_stdout(out):
-            stdin, sys.stdin = sys.stdin, instream
-            feeder.start()
-            try:
-                loop = CLI.main(["--mode", "gtp", "--config", str(GTP_CONFIG),
-                                 "--weights", str(wfile)], device=dev)
-            finally:
-                sys.stdin = stdin
-        torch.cuda.synchronize()
+        feeder.start()
+        with PlainGuard():
+            answers, timed = gtp_cli(torch, dev, ["--config", str(GTP_CONFIG), "--weights",
+                                                  str(wfile)], script, instream, out,
+                                     "19x19 GTP", on_line)
     finally:
-        GL.GtpLoop.execute = real_execute
         feeder.join(timeout=60)
         instream.close()
     session_s = time.monotonic() - t0
     a_launches = counts()
     text = out.getvalue()
-    answers = [line for line in text.split("\n") if line[:1] in ("=", "?")]
-    if len(answers) != len(script) or any(a[0] != "=" for a in answers):
-        bad = [(c, a) for c, a in zip(script, answers) if a[0] != "="]
-        raise RuntimeError(f"19x19 GTP: {len(answers)} answers to {len(script)} commands, "
-                           f"failures {bad[:4]}")
     infos = [line for line in text.split("\n") if line.startswith("info move")]
     if not infos:
         raise RuntimeError("19x19 GTP: the kata-analyze stream gave no info line:\n" + text[-3000:])
@@ -730,6 +772,48 @@ RL_ARGS = ["--rounds", "2", "--boardsize", "7", "--games-per-round", "8",
            "--steps-per-round", "8", "--batch-size", "64"]
 
 
+def train_step_parity(torch, dev, tdata, net_cfg, tag):
+    """One SGD step at batch 256 (a batch of the chunks under `tdata` in the
+    19x19 buffer) of `net_cfg` on the card and on the CPU from the same
+    seeded weights, f32: loss parts within TRAIN_TOL relative, parameters and
+    running statistics after the step within TRAIN_TOL absolute. Returns the
+    batch's planes."""
+    import math
+
+    from sayuri_tpu_torch.train import dataset as DS
+    from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
+
+    files, _ = DS.select_window_chunks(str(tdata))
+    loader = DS.ChunkLoader(files, nn_size=19, batch_size=256, down_sample_rate=1,
+                            policy_surprise_factor=0.0, shuffle_capacity=256, seed=0)
+    try:
+        planes, targets = next(iter(loader))
+    finally:
+        loader.close()
+    boards = planes[..., 42].reshape(256, -1).sum(1)
+    t0 = time.monotonic()
+    trainers = {d: Trainer(net_cfg, TrainConfig(), seed=TRAIN_SEED, device=d)
+                for d in ("cpu", dev)}
+    parts = {d: t.train_batch(planes, targets) for d, t in trainers.items()}
+    torch.cuda.synchronize()
+    worst = {"loss parts (relative)": 0.0, "parameters": 0.0, "statistics": 0.0}
+    for k, want in parts["cpu"].items():
+        rel = abs(parts[dev][k] - want) / max(abs(want), 1e-6)
+        worst["loss parts (relative)"] = max(worst["loss parts (relative)"], rel)
+    for what, get in (("parameters", "unreplicated_params"),
+                      ("statistics", "unreplicated_batch_stats")):
+        want, got = getattr(trainers["cpu"], get)(), getattr(trainers[dev], get)()
+        for k in want:
+            worst[what] = max(worst[what], (got[k].cpu() - want[k]).abs().max().item())
+    print(f"train step, {tag} SGD batch 256 (phase 13's chunks: {int(boards.min())}-"
+          f"{int(boards.max())} on-board cells a position in the 19x19 buffer), card vs "
+          f"CPU, f32 TF32 off: loss {parts[dev]['loss']:.6f} vs {parts['cpu']['loss']:.6f}; "
+          f"max error {worst} (bound {TRAIN_TOL}); {time.monotonic() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in parts[dev].values()) or max(worst.values()) > TRAIN_TOL:
+        raise RuntimeError(f"train step, {tag}: card and CPU disagree: {worst}")
+    return planes
+
+
 def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need):
     """Phase 15. (a) One b6c96 SGD step at batch 256 (a batch of phase 13's
     chunks in the 19x19 buffer) on the card and on the CPU from the same
@@ -759,41 +843,13 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
     from sayuri_tpu_torch.ops import ladder_kernel as LK
     from sayuri_tpu_torch.tools import rl_loop, train_worker
     from sayuri_tpu_torch.train import dataset as DS
-    from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
 
     tdata = out_dir / "tdata"
     t_phase = time.monotonic()
 
     # (a) the card's step against the CPU's
     files, n_all = DS.select_window_chunks(str(tdata))
-    loader = DS.ChunkLoader(files, nn_size=19, batch_size=256, down_sample_rate=1,
-                            policy_surprise_factor=0.0, shuffle_capacity=256, seed=0)
-    try:
-        planes, targets = next(iter(loader))
-    finally:
-        loader.close()
-    boards = planes[..., 42].reshape(256, -1).sum(1)
-    t0 = time.monotonic()
-    trainers = {d: Trainer(NetConfig(), TrainConfig(), seed=TRAIN_SEED, device=d)
-                for d in ("cpu", dev)}
-    parts = {d: t.train_batch(planes, targets) for d, t in trainers.items()}
-    torch.cuda.synchronize()
-    worst = {"loss parts (relative)": 0.0, "parameters": 0.0, "statistics": 0.0}
-    for k, want in parts["cpu"].items():
-        rel = abs(parts[dev][k] - want) / max(abs(want), 1e-6)
-        worst["loss parts (relative)"] = max(worst["loss parts (relative)"], rel)
-    for tag, get in (("parameters", "unreplicated_params"),
-                     ("statistics", "unreplicated_batch_stats")):
-        want, got = getattr(trainers["cpu"], get)(), getattr(trainers[dev], get)()
-        for k in want:
-            worst[tag] = max(worst[tag], (got[k].cpu() - want[k]).abs().max().item())
-    print(f"train step, b6c96 SGD batch 256 (phase 13's chunks: {int(boards.min())}-"
-          f"{int(boards.max())} on-board cells a position in the 19x19 buffer), card vs "
-          f"CPU, f32 TF32 off: loss {parts[dev]['loss']:.6f} vs {parts['cpu']['loss']:.6f}; "
-          f"max error {worst} (bound {TRAIN_TOL}); {time.monotonic() - t0:.1f} s")
-    if not all(math.isfinite(v) for v in parts[dev].values()) or max(worst.values()) > TRAIN_TOL:
-        raise RuntimeError(f"train step: card and CPU disagree: {worst}")
-    del trainers
+    planes = train_step_parity(torch, dev, tdata, NetConfig(), "b6c96")
 
     # (b) the train worker
     tw = work / "train-worker"
@@ -894,6 +950,139 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
     shapes = check_shapes(torch, card, spy, "RL loop", lambda k, n: f"launch {k} of {n}")
     print(f"train phase: {time.monotonic() - t_phase:.1f} s")
     return launches, shapes
+
+
+# phase 16: the block families, through the b6c96-mix net
+MIX = "b6c96-mix"
+MIX_SEED = 13
+MIX_BOARDS = (19, 13, 9)       # board sizes of 16(a)'s batch in the 19x19 buffer
+MIX_BATCH = 48
+
+
+def check_heads(got, want, tag):
+    """Every head of `got` within EVAL_ATOL of `want`'s."""
+    err = {k: (got[k].detach().double().cpu() - w.detach().double().cpu()).abs().max().item()
+           for k, w in want.items()}
+    print(f"{tag}: max abs err by head { {k: float(f'{e:.3g}') for k, e in err.items()} } "
+          f"(limit {EVAL_ATOL})")
+    bad = {k: e for k, e in err.items() if not e <= EVAL_ATOL}
+    if bad:
+        raise RuntimeError(f"{tag}: heads differ {bad}")
+
+
+def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
+                     check_launches, check_roots):
+    """Phase 16. (a) The b6c96-mix net (bench.NETS: every block family and
+    the RepLK head at the b6c96 width) from seeded weights, f32 with TF32
+    off, on the card and on the CPU over random planes of 19x19, 13x13 and
+    9x9 boards in the 19x19 buffer: every head within EVAL_ATOL. (b)
+    bench_playouts on b6c96-mix at B=256 x 96 playouts (bf16, root ladder
+    planes), alternated with b6c96 (mix, b6c96, b6c96, mix): launch
+    counters read around each mix run (step_and_analyze once a simulation,
+    the ladder kernels once a search), root visits = playouts + 1, legal
+    best moves; both rates and their ratio. (c) The port's exporter writes
+    the net as a v5 file, load_checkpoint_for_inference reads it back: heads
+    within EVAL_ATOL of the source net on the card; the GTP CLI with
+    configs/gtp-p400.txt on that file plays one 19x19 genmove. (d) One SGD
+    step of b6c96-mix at batch 256 on phase 13's chunks, card vs CPU
+    (train_step_parity), then ``bench train --net b6c96-mix``, the step
+    alone. (e) ``bench profile --net b6c96-mix``: the depthwise conv
+    blocks' device ms and their share of a search."""
+    import io
+
+    from sayuri_tpu_torch import bench
+    from sayuri_tpu_torch.models.network import SayuriNet
+    from sayuri_tpu_torch.models.weights_io import (export_reference_weights,
+                                                    load_checkpoint_for_inference)
+
+    t_phase = time.monotonic()
+    cfg = bench.net_config(MIX)
+    net_cpu = SayuriNet(cfg).init_random(MIX_SEED).eval()
+    print(f"{MIX}: stack {list(cfg.stack)}, {cfg.policy_head_type} policy head (kernel "
+          f"{cfg.policy_head_kernel}), {sum(p.numel() for p in net_cpu.parameters())} "
+          f"parameters")
+
+    # (a) the net on the card against the CPU, f32
+    rng = np.random.RandomState(MIX_SEED)
+    n = 19
+    planes = (rng.rand(MIX_BATCH, n, n, 43) > 0.6).astype(np.float32)
+    planes[..., 37:42] = rng.normal(size=(MIX_BATCH, 1, 1, 5))
+    mask = np.zeros((MIX_BATCH, n, n), np.float32)
+    for i in range(MIX_BATCH):
+        size = MIX_BOARDS[i % len(MIX_BOARDS)]
+        mask[i, :size, :size] = 1.0
+    planes *= mask[..., None]
+    planes[..., 42] = mask
+    x = torch.from_numpy(planes)
+    net = SayuriNet(cfg).init_random(MIX_SEED).to(dev).eval()
+    with torch.no_grad():
+        want = net_cpu(x)
+        got = net(x.to(dev))
+    torch.cuda.synchronize()
+    check_heads(got, want, f"{MIX} f32 card vs CPU ({MIX_BATCH} boards of {MIX_BOARDS} in the "
+                           f"19x19 buffer)")
+
+    # (b) the search, alternated with b6c96
+    rates = {MIX: [], "b6c96": []}
+    for which in (MIX, "b6c96", "b6c96", MIX):
+        reset_counts()
+        res = bench.bench_playouts(SLICE_BATCH, SLICE_PLAYOUTS, device=dev, net=which)
+        torch.cuda.synchronize()
+        if which == MIX:
+            check_launches(counts(), res, MIX)
+            check_roots(res, MIX)
+        rates[which].append(res["rate"])
+        print(f"{bench.METRIC.replace('b6c96', which)} = {res['rate']:.1f} playouts/s "
+              f"(B={SLICE_BATCH} x {SLICE_PLAYOUTS}, bf16, {res['searches'] - 1} timed "
+              f"searches in {res['seconds']:.3f} s)  [{card}]")
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    print(f"playouts/s {MIX} / b6c96, alternated in this call: {mean[MIX]:.1f} / "
+          f"{mean['b6c96']:.1f} = {mean[MIX] / mean['b6c96']:.4f}  [{card}]")
+
+    # (c) the v5 file, and the GTP CLI on it
+    wfile = work / f"{MIX}-seed{MIX_SEED}.bin.txt"
+    export_reference_weights(net_cpu, str(wfile))
+    back_cfg, back = load_checkpoint_for_inference(str(wfile), boardsize=19)
+    if (tuple(back_cfg.stack), back_cfg.policy_head_type) != (tuple(cfg.stack), "RepLK"):
+        raise RuntimeError(f"v5 file read back as {back_cfg}")
+    with torch.no_grad():
+        again = back.to(dev)(x.to(dev))
+    check_heads(again, got, f"{MIX} v5 file read back, on the card")
+    script = ["boardsize 19", "clear_board", "genmove b", "quit"]
+    t0 = time.monotonic()
+    answers, timed = gtp_cli(torch, dev, ["--config", str(GTP_CONFIG), "--weights", str(wfile)],
+                             script, io.StringIO("".join(f"{c}\n" for c in script)),
+                             io.StringIO(), f"{MIX} GTP")
+    (_, secs, playouts), = timed
+    print(f"{MIX} GTP (gtp-p400, the v5 file): genmove b -> {answers[2]!r} in {secs:.3f} s, "
+          f"{playouts} playouts, {playouts / secs:.1f} B=1 playouts/s; the session "
+          f"{time.monotonic() - t0:.1f} s  [{card}]")
+
+    # (d) training
+    train_step_parity(torch, dev, tdata, cfg, MIX)
+    res = bench.bench_train(device=dev, net=MIX)
+    print(f"{bench.TRAIN_METRIC.replace('b6c96', MIX)}: step alone {res['step_ms']:.3f} ms a "
+          f"step, {res['step_samples_per_s']:.1f} samples/s (19x19 batch 256 SGD f32 TF32 off, "
+          f"{res['steps']} steps after 5); card busy {res['device_busy_ms']:.3f} ms a step, "
+          f"idle share {res['device_idle_share']:.4f}, {res['launches_a_step']:.0f} launches a "
+          f"step; top kernels (ms a step) "
+          f"{[(k[:60], round(t, 3)) for k, t in res['top_kernels_ms']]}  [{card}]")
+
+    # (e) the profile of one search
+    prof = bench.profile_playouts(SLICE_BATCH, SLICE_PLAYOUTS, device=dev, net=MIX)
+    print(f"{MIX} search profile: {prof['wall_ms']:.1f} ms a search unprofiled, card busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share {prof['device_idle_share']:.4f}, "
+          f"{prof['kernel_launches']} launches; depthwise conv blocks' convolutions "
+          f"{prof['depthwise_device_ms']:.3f} ms ({100 * prof['depthwise_busy_share']:.2f}% of "
+          f"the busy time, {100 * prof['depthwise_wall_share']:.2f}% of the wall) by kernel "
+          f"(name, ms, launches) {[(k[:70], round(t, 3), c) for k, t, c in prof['depthwise_kernels_ms']]}"
+          f"  [{card}]")
+    print(f"{MIX} search profile, stages (device ms, launches): "
+          f"{ {k: (round(t, 3), c) for k, (t, c) in prof['stage_device_ms_launches'].items()} }; "
+          f"top kernels {[(k[:60], round(t, 3), c) for k, t, c in prof['top_kernels_ms'][:8]]}")
+    if not prof["depthwise_kernels_ms"]:
+        raise RuntimeError(f"{MIX} profile: no kernel ran in a depthwise conv range")
+    print(f"blocks phase: {time.monotonic() - t_phase:.1f} s")
 
 
 def main():
@@ -1668,14 +1857,20 @@ def main():
         torch, dev, card, wfile, work, reset_counts, counts, need)
     phase_done("GTP")
 
-    # ---- 15. train ----
-    phase("train")
     try:
+        # ---- 15. train ----
+        phase("train")
         rl_launches, rl_shapes = run_train_phase(
             torch, dev, card, out_dir, work, reset_counts, counts, need)
+        phase_done("train")
+
+        # ---- 16. block families ----
+        phase("block families")
+        run_blocks_phase(torch, np, dev, card, out_dir / "tdata", work, reset_counts, counts,
+                         check_launches, check_roots)
+        phase_done("block families")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    phase_done("train")
 
     # ---- result ----
     kernels = []

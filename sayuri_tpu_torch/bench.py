@@ -6,14 +6,20 @@ greedy and chase kernels) once per search, then the simulations (fused
 step+analysis kernel, 43-plane encode, b6c96 forward in bf16 under a random
 symmetry, tree update).
 
-    python -m sayuri_tpu_torch.bench [batch] [playouts]
+    python -m sayuri_tpu_torch.bench [batch] [playouts] [--net NET]
 
 prints ONE JSON line with the rate, the device name and its power limit.
+``--net`` picks the net of ``bench``, ``bench profile`` and ``bench
+train`` from NETS: ``b6c96`` (the default: NetConfig's RL net, residual
+blocks) or ``b6c96-mix`` (the same width and depth with one block of each
+family, bottleneck, nested bottleneck, mixer V1 and V2 and residual, and
+the RepLK policy head); the metric's name ends in the net's.
 
-    python -m sayuri_tpu_torch.bench profile [batch] [playouts] [trace.json]
+    python -m sayuri_tpu_torch.bench profile [batch] [playouts] [trace.json] [--net NET]
 
 profiles one search: device busy/idle share, host time per search stage,
-the top kernels by device time (and a chrome trace when a path is given).
+the top kernels by device time, the device ms of the depthwise conv blocks'
+convolutions (and a chrome trace when a path is given).
 
     python -m sayuri_tpu_torch.bench envsteps [batch] [steps]
 
@@ -45,7 +51,7 @@ B=1 playouts/s and seconds a playout, and the median seconds of a genmove
 that searches a new tree (``gtp_fresh_genmove_s_19x19_b6c96``: its
 playouts do not depend on how much of the last tree a move kept).
 
-    python -m sayuri_tpu_torch.bench train [--chunks DIR]
+    python -m sayuri_tpu_torch.bench train [--chunks DIR] [--net NET]
 
 times the trainer: b6c96 (``NetConfig()``) in the 19x19 buffer, batch 256
 (the TrainConfig default), SGD, f32 with TF32 off (the bench sets the two
@@ -84,7 +90,7 @@ from pathlib import Path
 import torch
 from torch.profiler import record_function
 
-METRIC = "mcts_playouts_per_s_19x19_b6c96"
+METRIC = "mcts_playouts_per_s_19x19_b6c96"     # "b6c96" stands for the net's name
 ENV_METRIC = "env_steps_per_s_19x19"
 SELFPLAY_METRIC = "selfplay_positions_per_s_19x19_b6c96"
 GTP_METRIC = "gtp_genmove_s_19x19_b6c96"
@@ -94,6 +100,14 @@ PROFILED_STEPS = 3
 LOADER_SIDE_STEPS = 20          # the loader alone, and fed at FAST_SWITCH_S
 FAST_SWITCH_S = 0.0005          # a tenth of CPython's default switch interval
 _M32 = 0xFFFFFFFF
+# the nets --net picks: NetConfig fields over its defaults (19x19, 96
+# channels, 32-channel heads, relu)
+NETS = {
+    "b6c96": {},
+    "b6c96-mix": dict(stack=("BottleneckBlock", "NestedBottleneckBlock-SE", "MixerBlock",
+                             "MixerBlockV2-SE", "ResidualBlock", "ResidualBlock-SE"),
+                      policy_head_type="RepLK"),
+}
 
 
 def device_info() -> str:
@@ -105,17 +119,24 @@ def device_info() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _setup(batch: int, playouts: int, device, seed: int):
-    """(MCTS driver, root states): b6c96 with seeded random weights, bf16,
-    random symmetry, root ladder planes, `batch` empty 19x19 boards."""
+def net_config(net: str = "b6c96", boardsize: int = 19):
+    """The NetConfig of a net of NETS."""
+    from sayuri_tpu_torch.models.network import NetConfig
+
+    return NetConfig(boardsize=boardsize, **NETS[net])
+
+
+def _setup(batch: int, playouts: int, device, seed: int, net: str = "b6c96"):
+    """(MCTS driver, root states): the net (NETS) with seeded random weights,
+    bf16, random symmetry, root ladder planes, `batch` empty 19x19 boards."""
     from sayuri_tpu_torch.game.state import GoEnv
     from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
     from sayuri_tpu_torch.models.evaluator import make_eval_fn
-    from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+    from sayuri_tpu_torch.models.network import SayuriNet
 
     env = GoEnv(n=19)
-    net = SayuriNet(NetConfig(boardsize=19)).init_random(seed).to(device).eval()
-    eval_fn = make_eval_fn(env, net, symmetry="random", ladder_mode="root",
+    model = SayuriNet(net_config(net)).init_random(seed).to(device).eval()
+    eval_fn = make_eval_fn(env, model, symmetry="random", ladder_mode="root",
                            compute_dtype=torch.bfloat16)
     mcts = MCTS(env, eval_fn, SearchConfig(max_nodes=playouts + 16, max_depth=64))
     return mcts, env.new_batch(batch, komi=7.5, device=device)
@@ -141,12 +162,13 @@ def _searcher(mcts, states, playouts):
 
 
 def bench_playouts(batch: int = 256, playouts: int = 96, device="cuda",
-                   iters: int = 3, seed: int = 0, roots=None):
-    """Time `iters` searches of `playouts` simulations after one warm-up
-    search, from `batch` empty 19x19 boards or, when given, from the 19x19
-    GoState `roots` (moved to `device`). Returns a dict with the rate, the
-    last tree, the MCTS object and the root states."""
-    mcts, states = _setup(batch, playouts, device, seed)
+                   iters: int = 3, seed: int = 0, roots=None, net: str = "b6c96"):
+    """Time `iters` searches of `playouts` simulations of `net` (NETS)
+    after one warm-up search, from `batch` empty 19x19 boards or, when
+    given, from the 19x19 GoState `roots` (moved to `device`). Returns a
+    dict with the rate, the last tree, the MCTS object and the root
+    states."""
+    mcts, states = _setup(batch, playouts, device, seed, net)
     if roots is not None:
         states = roots.to(device)
         batch = states.stones.shape[0]
@@ -366,15 +388,14 @@ def train_batch_seeded(batch: int):
 
 
 def bench_train(chunks=None, device="cuda", batch: int = 256, warmup: int = 5,
-                steps: int = 50):
-    """Time the b6c96 trainer at 19x19 (SGD, f32, TF32 off): `steps` steps
+                steps: int = 50, net: str = "b6c96"):
+    """Time the trainer of `net` (NETS) at 19x19 (SGD, f32, TF32 off): `steps` steps
     on one device-resident batch after `warmup`, then, when `chunks` (a
     directory) is given, ChunkLoader with train_worker's settings after
     `warmup` steps: the loader alone, `steps` steps fed by it, and steps
     fed by it at a short thread switch interval. Returns a dict."""
     import numpy as np
 
-    from sayuri_tpu_torch.models.network import NetConfig
     from sayuri_tpu_torch.train import dataset as DS
     from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
     from sayuri_tpu_torch.train.setting import LoopSetting
@@ -382,7 +403,8 @@ def bench_train(chunks=None, device="cuda", batch: int = 256, warmup: int = 5,
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        trainer = Trainer(NetConfig(), TrainConfig(batch_size=batch), seed=0, device=device)
+        trainer = Trainer(net_config(net), TrainConfig(batch_size=batch), seed=0,
+                          device=device)
         planes, targets = train_batch_seeded(batch)
         planes = torch.as_tensor(planes, device=device)
         targets = {k: torch.as_tensor(v, device=device) for k, v in targets.items()}
@@ -479,20 +501,29 @@ def _device_kernels(events, skip=None):
     return kernels, busy
 
 
+DW_RANGE = "net.depthwise_conv"
+
+
 def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
-                     trace: str | None = None, top: int = 12, seed: int = 0):
-    """One search after a warm-up one, timed without the profiler, then one
-    under torch.profiler. Returns both wall times; the device's busy time
-    (union of kernel intervals) and its idle share of the unprofiled wall;
-    kernel launches and device ms per `mcts.*` stage (a kernel belongs to
-    the stage whose device-side range holds its start); the host ms of each
-    stage under the profiler (inflated by the profiler's per-op cost); and
-    the `top` kernels by device time."""
+                     trace: str | None = None, top: int = 12, seed: int = 0,
+                     net: str = "b6c96"):
+    """One search of `net` (NETS) after a warm-up one, timed without the
+    profiler, then one under torch.profiler. Returns both wall times; the
+    device's busy time (union of kernel intervals) and its idle share of the
+    unprofiled wall; kernel launches and device ms per `mcts.*` stage (a
+    kernel belongs to the stage whose device-side range holds its start);
+    the host ms of each stage under the profiler (inflated by the
+    profiler's per-op cost); the `top` kernels by device time; and, by
+    kernel name, the device ms and launches of the depthwise conv blocks'
+    convolutions (their merged kernel and the grouped conv, in a
+    DW_RANGE range during the profiled search only)."""
     import bisect
 
     from torch.profiler import ProfilerActivity, profile
 
-    mcts, states = _setup(batch, playouts, device, seed)
+    from sayuri_tpu_torch.models.network import DepthwiseConvBlock
+
+    mcts, states = _setup(batch, playouts, device, seed, net)
     search = _searcher(mcts, states, playouts)
 
     search()
@@ -501,24 +532,37 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     search()
     _sync(device)
     wall = time.monotonic() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        search()
-        _sync(device)
-        wall_prof = time.monotonic() - t0
+    conv2d = DepthwiseConvBlock.conv2d
+
+    def ranged(self, x):
+        with record_function(DW_RANGE):
+            return conv2d(self, x)
+
+    DepthwiseConvBlock.conv2d = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            search()
+            _sync(device)
+            wall_prof = time.monotonic() - t0
+    finally:
+        DepthwiseConvBlock.conv2d = conv2d
     if trace:
         prof.export_chrome_trace(trace)
 
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     # the record_function ranges appear on the device timeline as well
-    ranges = sorted(
-        (e for e in events if e.device_type == cuda and e.name.startswith("mcts.")),
-        key=lambda e: e.time_range.start,
-    )
-    kernels, busy = _device_kernels(events, skip="mcts.")
+
+    def device_ranges(name):
+        return sorted((e for e in events if e.device_type == cuda and e.name.startswith(name)),
+                      key=lambda e: e.time_range.start)
+
+    ranges, dw_ranges = device_ranges("mcts."), device_ranges(DW_RANGE)
+    kernels, busy = _device_kernels(events, skip=("mcts.", DW_RANGE))
     starts = [r.time_range.start for r in ranges]
-    per_kernel, per_stage = {}, {}
+    dw_starts = [r.time_range.start for r in dw_ranges]
+    per_kernel, per_stage, per_dw = {}, {}, {}
     for e in kernels:
         s = e.time_range.start
         us = e.time_range.elapsed_us()
@@ -529,11 +573,17 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
                  else "outside")
         total, count = per_stage.get(stage, (0.0, 0))
         per_stage[stage] = (total + us, count + 1)
+        i = bisect.bisect_right(dw_starts, s) - 1
+        if i >= 0 and s < dw_ranges[i].time_range.end:
+            total, count = per_dw.get(e.name, (0.0, 0))
+            per_dw[e.name] = (total + us, count + 1)
     host = {}
     for e in events:
         if e.device_type != cuda and e.name.startswith("mcts."):
             host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    dw_ms = sum(us for us, _ in per_dw.values()) / 1e3
     return {
+        "net": net,
         "wall_ms": wall * 1e3,
         "wall_ms_profiled": wall_prof * 1e3,
         "device_busy_ms": busy / 1e3,
@@ -547,6 +597,13 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
         "top_kernels_ms": [
             (name, us / 1e3, count) for name, (us, count) in
             sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
+        ],
+        "depthwise_device_ms": dw_ms,
+        "depthwise_busy_share": dw_ms / (busy / 1e3) if busy else 0.0,
+        "depthwise_wall_share": dw_ms / (wall * 1e3),
+        "depthwise_kernels_ms": [
+            (name, us / 1e3, count) for name, (us, count) in
+            sorted(per_dw.items(), key=lambda kv: -kv[1][0])
         ],
     }
 
@@ -693,6 +750,15 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("bench: no CUDA device; this benchmark runs on the card only")
     args = sys.argv[1:]
+    net = "b6c96"
+    if "--net" in args and args[0] in ("kernels-ab", "envsteps", "selfplay", "gtp"):
+        sys.exit(f"bench {args[0]}: --net is read by bench, bench profile and bench train only")
+    if "--net" in args:
+        i = args.index("--net")
+        net = args[i + 1] if i + 1 < len(args) else None
+        if net not in NETS:
+            sys.exit(f"bench: --net takes one of {sorted(NETS)}")
+        del args[i:i + 2]
     if args and args[0] == "kernels-ab":
         res = ab_kernels(args[1])
         for name, r in res.items():
@@ -750,9 +816,9 @@ def main():
         return
     if args and args[0] == "train":
         chunks = args[2] if args[1:2] == ["--chunks"] else None
-        res = bench_train(chunks=chunks)
+        res = bench_train(chunks=chunks, net=net)
         print(json.dumps({
-            "metric": TRAIN_METRIC,
+            "metric": TRAIN_METRIC.replace("b6c96", net),
             "value": res["step_samples_per_s"],
             "unit": "samples/s",
             **res,
@@ -763,14 +829,14 @@ def main():
         batch = int(args[1]) if len(args) > 1 else 256
         playouts = int(args[2]) if len(args) > 2 else 96
         res = profile_playouts(batch, playouts,
-                               trace=args[3] if len(args) > 3 else None)
+                               trace=args[3] if len(args) > 3 else None, net=net)
         print(json.dumps(dict(res, device=device_info()), indent=1))
         return
     batch = int(args[0]) if args else 256
     playouts = int(args[1]) if len(args) > 1 else 96
-    res = bench_playouts(batch, playouts)
+    res = bench_playouts(batch, playouts, net=net)
     print(json.dumps({
-        "metric": METRIC,
+        "metric": METRIC.replace("b6c96", net),
         "value": res["rate"],
         "unit": "playouts/s",
         "batch": batch,

@@ -11,12 +11,16 @@ sayuri_tpu.models.network).
 - the error head's softplus has KataGo's gradient floor;
 - GlobalPool = concat(mean, mean*(sqrt(hw)-14)/10, max) for the policy
   head and SE, with the board-size polynomial variant for the value head;
-- blocks: ResidualBlock and ResidualBlock-SE (the default b6c96 stack);
-- the "Normal" policy head emits 5 spatial policy planes + 5 pass logits;
-  the value head emits 15 values = wdl(3) + q_vals(5) + scores(5) +
+- blocks: ResidualBlock, BottleneckBlock, NestedBottleneckBlock and
+  MixerBlock (V1 / V2: a large-kernel depthwise conv and a 1x1 FFN), each
+  with optional SE;
+- the policy head ("Normal", or "RepLK" with a large-kernel depthwise conv
+  and a pointwise conv before it) emits 5 spatial policy planes + 5 pass
+  logits; the value head emits 15 values = wdl(3) + q_vals(5) + scores(5) +
   errors(2), plus tanh ownership.
 
-Convolutions run through cuDNN (``F.conv2d``) in NCHW; the public call
+Convolutions run through cuDNN (``F.conv2d``, grouped for the depthwise
+ones) in NCHW; the public call
 takes NHWC planes like the JAX package. For bf16, wrap the call in
 ``torch.autocast``.
 """
@@ -57,7 +61,8 @@ class NetConfig:
     se_ratio: int = 4
     policy_head_channels: int = 32
     value_head_channels: int = 32
-    policy_head_type: str = "Normal"
+    policy_head_type: str = "Normal"  # or "RepLK"
+    policy_head_kernel: int = 7
     activation: str = "relu"
     renorm_max_r: float = 1.0
     renorm_max_d: float = 0.0
@@ -163,6 +168,50 @@ class ConvBlock(nn.Module):
         return self.act(self.bn(self.conv(x) * mask, mask))
 
 
+class BroadcastDWConv(nn.Module):
+    """Depthwise conv whose effective kernel adds a gamma-weighted sum over
+    the channels to every channel's kernel: w + sum_c(w_c * gamma_c),
+    recomputed each call. ``weight`` is [C, 1, k, k] (F.conv2d's depthwise
+    layout); ``gamma`` starts at 1/sqrt(C), ``bias`` at zero."""
+
+    def __init__(self, features: int, kernel: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(features, 1, kernel, kernel))
+        self.gamma = nn.Parameter(torch.full((features,), 1.0 / math.sqrt(features)))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def effective_weight(self):
+        w = self.weight
+        return w + (w * self.gamma[:, None, None, None]).sum(0, keepdim=True)
+
+
+class DepthwiseConvBlock(nn.Module):
+    """(k x k depthwise conv + 3x3 reparam depthwise conv, each with its bias)
+    -> *mask -> BN -> act. Both convs pad SAME, so they run as one grouped
+    conv: the 3x3 effective kernel zero-padded into the k x k one, the
+    biases summed (the merged form the v5 file stores)."""
+
+    def __init__(self, features: int, kernel: int, use_gamma: bool, activation: str,
+                 rmax: float = 1.0, dmax: float = 0.0):
+        super().__init__()
+        if kernel < 3 or kernel % 2 == 0:
+            raise ValueError(f"depthwise kernel {kernel}: needs an odd size of 3 or more")
+        self.conv = BroadcastDWConv(features, kernel)
+        self.rep3x3 = BroadcastDWConv(features, 3)
+        self.bn = MaskedBatchNorm(features, use_gamma, rmax=rmax, dmax=dmax)
+        self.act = act_fn(activation)
+
+    def conv2d(self, x):
+        k = self.conv.weight.shape[-1]
+        p = (k - 3) // 2
+        w = self.conv.effective_weight() + F.pad(self.rep3x3.effective_weight(), (p, p, p, p))
+        return F.conv2d(x, w, self.conv.bias + self.rep3x3.bias, padding=k // 2,
+                        groups=w.shape[0])
+
+    def forward(self, x, mask):
+        return self.act(self.bn(self.conv2d(x) * mask, mask))
+
+
 class Dense(nn.Module):
     def __init__(self, cin: int, cout: int, activation: str = "identity"):
         super().__init__()
@@ -204,33 +253,131 @@ class SqueezeExcite(nn.Module):
         return out * mask
 
 
-class ResidualBlock(nn.Module):
+class _Block(nn.Module):
+    """A tower block's tail: the optional SE (``self.se``), then
+    act(out + skip) (``self.act``)."""
+
+    def _finish(self, out, skip, mask, msum, msqrt):
+        if self.se is not None:
+            out = self.se(out, mask, msum, msqrt)
+        return self.act(out + skip)
+
+
+def _se(features: int, se_size: int | None, activation: str):
+    return SqueezeExcite(features, se_size, activation) if se_size else None
+
+
+class ResidualBlock(_Block):
     def __init__(self, features: int, se_size: int | None, activation: str,
                  rmax: float = 1.0, dmax: float = 0.0):
         super().__init__()
         self.conv1 = ConvBlock(features, features, 3, False, activation, rmax, dmax)
         self.conv2 = ConvBlock(features, features, 3, True, "identity", rmax, dmax)
-        self.se = (
-            SqueezeExcite(features, se_size, activation) if se_size else None
-        )
+        self.se = _se(features, se_size, activation)
         self.act = act_fn(activation)
 
     def forward(self, x, mask, msum, msqrt):
         out = self.conv2(self.conv1(x, mask), mask)
-        if self.se is not None:
-            out = self.se(out, mask, msum, msqrt)
-        return self.act(out + x)
+        return self._finish(out, x, mask, msum, msqrt)
+
+
+class BottleneckBlock(_Block):
+    """1x1 down to features // 2 channels, two 3x3 convs there, 1x1 back up."""
+
+    def __init__(self, features: int, se_size: int | None, activation: str,
+                 rmax: float = 1.0, dmax: float = 0.0):
+        super().__init__()
+        a, c, rd = activation, features // 2, (rmax, dmax)
+        self.pre = ConvBlock(features, c, 1, False, a, *rd)
+        self.conv1 = ConvBlock(c, c, 3, False, a, *rd)
+        self.conv2 = ConvBlock(c, c, 3, False, a, *rd)
+        self.post = ConvBlock(c, features, 1, True, "identity", *rd)
+        self.se = _se(features, se_size, a)
+        self.act = act_fn(a)
+
+    def forward(self, x, mask, msum, msqrt):
+        out = self.pre(x, mask)
+        out = self.conv2(self.conv1(out, mask), mask)
+        return self._finish(self.post(out, mask), x, mask, msum, msqrt)
+
+
+class NestedBottleneckBlock(_Block):
+    """1x1 down to features // 2 channels, two residual blocks (no SE) there,
+    1x1 back up."""
+
+    def __init__(self, features: int, se_size: int | None, activation: str,
+                 rmax: float = 1.0, dmax: float = 0.0):
+        super().__init__()
+        a, c, rd = activation, features // 2, (rmax, dmax)
+        self.pre = ConvBlock(features, c, 1, False, a, *rd)
+        self.block1 = ResidualBlock(c, None, a, *rd)
+        self.block2 = ResidualBlock(c, None, a, *rd)
+        self.post = ConvBlock(c, features, 1, True, "identity", *rd)
+        self.se = _se(features, se_size, a)
+        self.act = act_fn(a)
+
+    def forward(self, x, mask, msum, msqrt):
+        out = self.pre(x, mask)
+        out = self.block2(self.block1(out, mask, msum, msqrt), mask, msum, msqrt)
+        return self._finish(self.post(out, mask), x, mask, msum, msqrt)
+
+
+class MixerBlock(_Block):
+    """ConvNeXt-style block: a 7x7 depthwise conv block, then a 1x1 FFN of
+    int(1.5 * features) channels. Version 1 adds the depthwise block's input
+    to its output before the FFN, and the block's final skip adds that sum;
+    version 2 has the block's input as its only skip."""
+
+    def __init__(self, features: int, se_size: int | None, activation: str,
+                 version: int = 1, rmax: float = 1.0, dmax: float = 0.0):
+        super().__init__()
+        a, ffn, rd = activation, int(1.5 * features), (rmax, dmax)
+        self.version = version
+        self.dw = DepthwiseConvBlock(features, 7, True, a, *rd)
+        self.ffn1 = ConvBlock(features, ffn, 1, False, a, *rd)
+        self.ffn2 = ConvBlock(ffn, features, 1, True, "identity", *rd)
+        self.se = _se(features, se_size, a)
+        self.act = act_fn(a)
+
+    def forward(self, x, mask, msum, msqrt):
+        if self.version == 1:
+            x = self.dw(x, mask) + x
+            out = x
+        else:
+            out = self.dw(x, mask)
+        out = self.ffn2(self.ffn1(out, mask), mask)
+        return self._finish(out, x, mask, msum, msqrt)
 
 
 def _parse_block(spec: str, cfg: NetConfig):
-    parts = spec.strip().split("-")
-    if parts[0] != "ResidualBlock" or any(p != "SE" for p in parts[1:]):
-        raise ValueError(
-            f"block {spec!r}: only ResidualBlock and ResidualBlock-SE are ported"
-        )
-    se_size = cfg.residual_channels // cfg.se_ratio if "SE" in parts else None
-    return ResidualBlock(cfg.residual_channels, se_size, cfg.activation,
-                         cfg.renorm_max_r, cfg.renorm_max_d)
+    """'ResidualBlock-SE', 'MixerBlockV2', ... -> the block module (the JAX
+    package's parse: the last basic block named wins, -SE anywhere)."""
+    se_size = None
+    kind = None
+    version = 1
+    for p in spec.strip().split("-"):
+        if p == "SE":
+            se_size = cfg.residual_channels // cfg.se_ratio
+        elif p in ("ResidualBlock", "BottleneckBlock", "NestedBottleneckBlock"):
+            kind = p
+        elif p in ("MixerBlock", "MixerBlockV1"):
+            kind = "MixerBlock"
+        elif p == "MixerBlockV2":
+            kind, version = "MixerBlock", 2
+        else:
+            raise ValueError(f"unknown block component {p!r}")
+    if kind is None:
+        raise ValueError(f"no basic block in {spec!r}")
+    c = cfg.residual_channels
+    common = dict(se_size=se_size, activation=cfg.activation,
+                  rmax=cfg.renorm_max_r, dmax=cfg.renorm_max_d)
+    if kind == "ResidualBlock":
+        return ResidualBlock(c, **common)
+    if kind == "BottleneckBlock":
+        return BottleneckBlock(c, **common)
+    if kind == "NestedBottleneckBlock":
+        return NestedBottleneckBlock(c, **common)
+    return MixerBlock(c, version=version, **common)
 
 
 class SayuriNet(nn.Module):
@@ -247,8 +394,6 @@ class SayuriNet(nn.Module):
 
     def __init__(self, cfg: NetConfig = NetConfig()):
         super().__init__()
-        if cfg.policy_head_type != "Normal":
-            raise ValueError("only the Normal policy head is ported")
         self.cfg = cfg
         c, pc, vc = (cfg.residual_channels, cfg.policy_head_channels,
                      cfg.value_head_channels)
@@ -256,6 +401,10 @@ class SayuriNet(nn.Module):
         self.input_conv = ConvBlock(cfg.input_channels, c, 3, True, a, *rd)
         self.tower = nn.ModuleList(_parse_block(s, cfg) for s in cfg.stack)
         self.policy_conv = ConvBlock(c, pc, 1, False, a, *rd)
+        if cfg.policy_head_type == "RepLK":
+            self.policy_dw = DepthwiseConvBlock(pc, max(cfg.policy_head_kernel, 7), False,
+                                                a, *rd)
+            self.policy_pw = ConvBlock(pc, pc, 1, True, a, *rd)
         self.policy_inter = Dense(3 * pc, pc, a)
         self.pol_misc = nn.Conv2d(pc, cfg.policy_outs, 1)
         self.pol_pass = Dense(pc, cfg.policy_outs)
@@ -266,11 +415,11 @@ class SayuriNet(nn.Module):
 
     def init_random(self, seed: int = 0):
         """Seeded random weights: xavier-normal kernels, zero biases, unit
-        BN statistics."""
+        BN statistics, depthwise gammas at 1/sqrt(C)."""
         g = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                if isinstance(m, (nn.Conv2d, nn.Linear, BroadcastDWConv)):
                     w = m.weight
                     rf = w[0][0].numel() if w.ndim == 4 else 1
                     fan_in, fan_out = w.shape[1] * rf, w.shape[0] * rf
@@ -278,6 +427,8 @@ class SayuriNet(nn.Module):
                     w.copy_(torch.randn(w.shape, generator=g) * std)
                     if m.bias is not None:
                         m.bias.zero_()
+                    if isinstance(m, BroadcastDWConv):
+                        m.gamma.fill_(1.0 / math.sqrt(w.shape[0]))
         return self
 
     def forward(self, planes):
@@ -295,6 +446,8 @@ class SayuriNet(nn.Module):
 
         # ---- policy head ----
         pol = self.policy_conv(x, mask)
+        if self.cfg.policy_head_type == "RepLK":
+            pol = self.policy_pw(self.policy_dw(pol, mask), mask)
         pol_inter = self.policy_inter(global_pool(pol, mask, msum, msqrt))
         pol = (pol + pol_inter[:, :, None, None]) * mask
         pol_spatial = self.pol_misc(pol)

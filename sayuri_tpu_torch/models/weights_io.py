@@ -19,10 +19,14 @@ The layers are linearized in the reference collector's order
 (``layer_plan``: input conv, tower sublayers, policy head, value head).
 Batch norms are stored merged ((x - mean) / std with gamma and beta folded
 in); on import they land in the running statistics with identity gamma and
-zero beta, which gives the same inference. Only the blocks the port's net
-has are read and written: ResidualBlock with or without SE, and the Normal
-policy head. The JAX package's trainer checkpoint (a pickled flax msgpack
-blob) is not read: it is refused with a message that names it.
+zero beta, which gives the same inference. A depthwise conv block (the
+mixer's, the RepLK head's) is stored as one merged kernel and bias: each
+conv's effective kernel (its gamma broadcast folded in), the 3x3 one
+zero-padded into the k x k one; on import the merged kernel lands in
+``conv`` with gamma 0, and ``rep3x3`` is zero. Every block family and both
+policy heads of the net are read and written. The JAX package's trainer
+checkpoint (a pickled flax msgpack blob) is not read: it is refused with a
+message that names it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from sayuri_tpu_torch.models.network import ConvBlock, Dense, NetConfig, SayuriNet
+from sayuri_tpu_torch.models.network import (ConvBlock, Dense, DepthwiseConvBlock, NetConfig,
+                                             SayuriNet)
 
 
 def _node(tree, path):
@@ -65,10 +70,17 @@ def from_flax_variables(net: SayuriNet, variables) -> SayuriNet:
         if not name:
             continue
         path = _flax_path(name)
-        if isinstance(mod, ConvBlock):
+        if isinstance(mod, (ConvBlock, DepthwiseConvBlock)):
             p = _node(params, path)
             s = _node(stats, path)["MaskedBatchNorm_0"]
-            sd[f"{name}.conv.weight"] = t(p["Conv_0"]["kernel"]).permute(3, 2, 0, 1)
+            if isinstance(mod, ConvBlock):
+                sd[f"{name}.conv.weight"] = t(p["Conv_0"]["kernel"]).permute(3, 2, 0, 1)
+            else:
+                for sub in ("conv", "rep3x3"):
+                    q = p[sub]                      # weight [k, k, C] -> [C, 1, k, k]
+                    sd[f"{name}.{sub}.weight"] = t(q["weight"]).permute(2, 0, 1)[:, None]
+                    sd[f"{name}.{sub}.gamma"] = t(q["gamma"])
+                    sd[f"{name}.{sub}.bias"] = t(q["bias"])
             bn = p["MaskedBatchNorm_0"]
             sd[f"{name}.bn.beta"] = t(bn["beta"])
             if mod.bn.gamma is not None:
@@ -96,22 +108,38 @@ _EPS = 1e-5
 _BIN_SENTINEL = b"\xff\xff\xff\xff"
 
 
+def _block_layers(spec: str, prefix: str):
+    """(kind, module name) entries of one tower block in collector order,
+    kind in {conv_block, dw_block, fc}."""
+    parts = spec.split("-")
+    kind = [p for p in parts if p != "SE"][0]
+    if kind == "ResidualBlock":
+        subs = ["conv1", "conv2"]
+    elif kind == "BottleneckBlock":
+        subs = ["pre", "conv1", "conv2", "post"]
+    elif kind == "NestedBottleneckBlock":
+        subs = ["pre", "block1.conv1", "block1.conv2", "block2.conv1", "block2.conv2", "post"]
+    elif kind.startswith("MixerBlock"):
+        subs = ["dw", "ffn1", "ffn2"]
+    else:
+        raise ValueError(f"unknown block {spec}")
+    out = [("dw_block" if s == "dw" else "conv_block", f"{prefix}.{s}") for s in subs]
+    if "SE" in parts:
+        out += [("fc", f"{prefix}.se.squeeze"), ("fc", f"{prefix}.se.excite")]
+    return out
+
+
 def layer_plan(cfg: NetConfig):
     """Collector-order layer list [(kind, module name)], kind in
-    {conv_block, fc, conv}."""
+    {conv_block, dw_block, fc, conv}: input conv, tower sublayers, policy
+    head, value head."""
     plan = [("conv_block", "input_conv")]
     for i, spec in enumerate(cfg.stack):
-        parts = spec.strip().split("-")
-        if parts[0] != "ResidualBlock" or any(p != "SE" for p in parts[1:]):
-            raise ValueError(
-                f"block {spec!r}: only ResidualBlock and ResidualBlock-SE are ported")
-        plan += [("conv_block", f"tower.{i}.conv1"), ("conv_block", f"tower.{i}.conv2")]
-        if "SE" in parts:
-            plan += [("fc", f"tower.{i}.se.squeeze"), ("fc", f"tower.{i}.se.excite")]
-    if cfg.policy_head_type != "Normal":
-        raise ValueError(f"policy head {cfg.policy_head_type!r}: only Normal is ported")
+        plan += _block_layers(spec, f"tower.{i}")
+    plan += [("conv_block", "policy_conv")]
+    if cfg.policy_head_type == "RepLK":
+        plan += [("dw_block", "policy_dw"), ("conv_block", "policy_pw")]
     plan += [
-        ("conv_block", "policy_conv"),
         ("fc", "policy_inter"),
         ("conv", "pol_misc"),
         ("fc", "pol_pass"),
@@ -127,18 +155,46 @@ def _np(t):
     return t.detach().float().cpu().numpy()
 
 
+def _merged_bn(bn):
+    """(mean, std) of a batch norm with its gamma and beta folded in."""
+    mean = _np(bn.mean)
+    std = np.sqrt(_EPS + _np(bn.var))
+    if bn.gamma is not None:
+        std = std / _np(bn.gamma)
+    return mean - _np(bn.beta) * std, std
+
+
+def _dw_merged(mod):
+    """Merged kernel [C, 1, k, k] and bias [C] of a DepthwiseConvBlock, in
+    numpy and in the JAX exporter's order of operations (its weights in
+    [k, k, C]), so that both packages write the same bytes."""
+
+    def eff(conv):
+        w = np.ascontiguousarray(_np(conv.weight)[:, 0].transpose(1, 2, 0))   # [k, k, C]
+        g = _np(conv.gamma)
+        w_eff = w + np.sum(w * g[None, None, :], axis=-1, keepdims=True)
+        return np.transpose(w_eff, (2, 0, 1))[:, None]
+
+    wk, w3 = eff(mod.conv), eff(mod.rep3x3)
+    ps = (wk.shape[-1] - 3) // 2
+    w3p = np.pad(w3, ((0, 0), (0, 0), (ps, ps), (ps, ps)))
+    return wk + w3p, _np(mod.conv.bias) + _np(mod.rep3x3.bias)
+
+
 def _emit(kind, mod):
     """(struct lines, flat float32 tensors in file order) of one layer."""
     if kind == "conv_block":
-        w, bn = _np(mod.conv.weight), mod.bn
+        w = _np(mod.conv.weight)
         oc, ic, ks = w.shape[0], w.shape[1], w.shape[2]
-        mean = _np(bn.mean)
-        std = np.sqrt(_EPS + _np(bn.var))
-        if bn.gamma is not None:
-            std = std / _np(bn.gamma)
-        mean = mean - _np(bn.beta) * std
+        mean, std = _merged_bn(mod.bn)
         return (f"Convolution {ic} {oc} {ks}\nBatchNorm {oc}\n",
                 [w.ravel(), np.zeros(oc, np.float32), mean, std])
+    if kind == "dw_block":
+        w, bias = _dw_merged(mod)
+        c, ks = w.shape[0], w.shape[-1]
+        mean, std = _merged_bn(mod.bn)
+        return (f"DepthwiseConvolution 1 {c} {ks}\nBatchNorm {c}\n",
+                [w.ravel(), bias, mean, std])
     if kind == "conv":
         w = _np(mod.weight)
         return (f"Convolution {w.shape[1]} {w.shape[0]} {w.shape[2]}\n",
@@ -246,21 +302,36 @@ def import_reference_weights(filename: str):
     sd = {}
     si = 0
     se_ratio = None
+    policy_kernel = None
     for kind, name in layer_plan(cfg):
-        if kind in ("conv_block", "conv"):
+        if kind != "fc":
+            # Convolution IC OC K, or DepthwiseConvolution 1 C K
             _, ic, oc, ks = structs[si]
             ic, oc, ks = int(ic), int(oc), int(ks)
-            si += 2 if kind == "conv_block" else 1
+            si += 1 if kind == "conv" else 2
             kern, pos = read_tensor(oc * ic * ks * ks, pos)
             bias, pos = read_tensor(oc, pos)
+            kern = kern.reshape(oc, ic, ks, ks)
             if kind == "conv":
-                sd[f"{name}.weight"] = t(kern.reshape(oc, ic, ks, ks))
+                sd[f"{name}.weight"] = t(kern)
                 sd[f"{name}.bias"] = t(bias)
                 continue
             mean, pos = read_tensor(oc, pos)
             std, pos = read_tensor(oc, pos)
-            sd[f"{name}.conv.weight"] = t(kern.reshape(oc, ic, ks, ks))
-            sd[f"{name}.bn.beta"] = t(np.zeros(oc, np.float32))
+            zeros = np.zeros(oc, np.float32)
+            sd[f"{name}.conv.weight"] = t(kern)
+            if kind == "dw_block":
+                # the merged kernel and bias go into `conv` with gamma 0;
+                # `rep3x3` is zero
+                sd[f"{name}.conv.gamma"] = t(zeros)
+                sd[f"{name}.conv.bias"] = t(bias)
+                sd[f"{name}.rep3x3.weight"] = t(np.zeros((oc, 1, 3, 3), np.float32))
+                sd[f"{name}.rep3x3.gamma"] = t(zeros)
+                sd[f"{name}.rep3x3.bias"] = t(zeros)
+                if name == "policy_dw":
+                    # the file does not record the head's kernel: recover it
+                    policy_kernel = ks
+            sd[f"{name}.bn.beta"] = t(zeros)
             sd[f"{name}.bn.mean"] = t(mean)
             sd[f"{name}.bn.var"] = t(std * std - _EPS)
         else:
@@ -276,6 +347,8 @@ def import_reference_weights(filename: str):
                 se_ratio = max(1, cfg.residual_channels // osz)
     if se_ratio is not None and se_ratio != cfg.se_ratio:
         cfg = NetConfig(**{**cfg.__dict__, "se_ratio": se_ratio})
+    if policy_kernel is not None and policy_kernel != cfg.policy_head_kernel:
+        cfg = NetConfig(**{**cfg.__dict__, "policy_head_kernel": policy_kernel})
     return cfg, sd
 
 

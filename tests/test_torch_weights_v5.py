@@ -5,8 +5,11 @@
   forward is within 1e-5 of the JAX net's on the original variables;
 - the port's export of the same weights is byte-identical to the JAX
   export (binary and text), so the JAX importer reads equal arrays;
-- a trainer checkpoint (.ckpt) and the block families the port lacks are
-  refused with a clear error.
+- a JAX-package trainer checkpoint (.ckpt) is refused with a clear error,
+  a port checkpoint written before NetConfig had ``policy_head_kernel``
+  loads with its default, and the port's layer plan equals the JAX one
+  entry for entry for a net of every block family with the RepLK head
+  (test_torch_blocks.py holds those nets' files and outputs).
 """
 
 import jax
@@ -18,7 +21,7 @@ import torch
 from sayuri_tpu.models import weights_io as JW
 from sayuri_tpu.models.network import NetConfig as JNetConfig
 from sayuri_tpu_torch.models import weights_io as TW
-from sayuri_tpu_torch.models.network import NetConfig
+from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
 from test_torch_network import STACK, random_planes, seeded_variables
 from torch_draws import one_torch_thread  # noqa: F401 (fixture)
 
@@ -92,7 +95,35 @@ def test_refuses_checkpoints_and_unported_blocks(tmp_path):
                                    "extra": {}}))
     with pytest.raises(ValueError, match="ckpt"):
         TW.load_checkpoint_for_inference(str(ckpt))
-    with pytest.raises(ValueError, match="BottleneckBlock"):
-        TW.layer_plan(NetConfig(stack=("BottleneckBlock",)))
-    with pytest.raises(ValueError, match="policy head"):
-        TW.layer_plan(NetConfig(policy_head_type="RepLK"))
+    # no block family or policy head is left unported: the layer plans of a
+    # net of every family agree, entry for entry, names mapped to flax scopes
+    stack = ("ResidualBlock", "BottleneckBlock-SE", "NestedBottleneckBlock",
+             "NestedBottleneckBlock-SE", "MixerBlock", "MixerBlockV1-SE", "MixerBlockV2",
+             "BottleneckBlock", "ResidualBlock-SE")
+    for head in ("Normal", "RepLK"):
+        want = JW.layer_plan(JNetConfig(stack=stack, policy_head_type=head))
+        got = TW.layer_plan(NetConfig(stack=stack, policy_head_type=head))
+        assert [(k, "/".join(TW._flax_path(name))) for k, name in got] == want
+    # both packages refuse the same unknown block
+    for plan in (JW.layer_plan, TW.layer_plan):
+        with pytest.raises(ValueError, match="unknown block ConvBlock"):
+            plan(NetConfig(stack=("ConvBlock",)))
+
+
+def test_checkpoint_without_policy_head_kernel_loads(tmp_path):
+    """A .ckpt whose net_cfg predates ``policy_head_kernel`` loads with the
+    field's default and the same net."""
+    import dataclasses
+
+    cfg = NetConfig(boardsize=N, residual_channels=C, stack=STACK)
+    net = SayuriNet(cfg).init_random(5).eval()
+    old_cfg = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "policy_head_kernel"}
+    path = tmp_path / "old.ckpt"
+    torch.save({"model": net.state_dict(), "net_cfg": old_cfg}, str(path))
+    got_cfg, got = TW.load_checkpoint_for_inference(str(path))
+    assert got_cfg == cfg and got_cfg.policy_head_kernel == 7
+    planes = torch.from_numpy(random_planes(b=2, n=N, seed=7))
+    with torch.no_grad():
+        a, b = net(planes), got(planes)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
