@@ -24,7 +24,8 @@ no result line):
    plain one on the CPU; on the goldens the four planes equal the
    reference's encoder planes 33-36; ladder_prep also on the stress boards
    (19x19 and 9x9 buffers). Kernels and plain versions timed on
-   the card at B=256; the searches' bounds count the plies the plain twins
+   the card at B=256 (the plain chase on the CPU: on the card it took
+   76-81 s); the searches' bounds count the plies the plain twins
    ran on these lanes (for each search: the plies of its longest lane,
    their sum, median, p90 and p99 over the searched lanes, the kernel's
    ms a ply of the longest lane and that lane's time alone are printed).
@@ -91,7 +92,8 @@ no result line):
 14. GTP: the GTP mode as ``python -m sayuri_tpu_torch --mode gtp --config
     configs/gtp-p400.txt --weights F`` builds it, in-process with stdin
     fed line by line and stdout captured, on phase 13's b6c96 v5 file
-    (bf16): name, list_commands, boardsize 19, clear_board, eight genmoves
+    (bf16) and ``--threads 4`` (a flag the JAX package ignores):
+    name, list_commands, boardsize 19, clear_board, four genmoves
     alternating colours with tree reuse, play and undo, a kata-analyze
     stream held about two seconds before the next line (an info line
     parsed), sayuri-raw_nn avg, final_score, final_status_list dead,
@@ -127,7 +129,12 @@ no result line):
     64: round 2's actor loads round 1's gated .ckpt, the self-play kernels
     launch, the plain functions raise on a CUDA tensor meanwhile, and every
     kernel is held against its plain twin at each shape the loop gave it
-    (the kernels line carries `rl_launches` and `rl_by_shape`).
+    (the kernels line carries `rl_launches` and `rl_by_shape`); (e) the
+    loader alone (``bench.bench_loader``, 8 batches of 256) with the native
+    chunk codec and with the Python parse, alternated (on, off, off, on),
+    on phase 13's chunks and on seeded 19x19 chunks that the port's native
+    writer produces here. In (a) and (e) the loader must have parsed every
+    sample on the path asked for (the codec builds on the card's host).
 
 16. block families: the b6c96-mix net (``bench.NETS``: b6c96's width and
     depth with the stack BottleneckBlock, NestedBottleneckBlock-SE,
@@ -143,19 +150,37 @@ no result line):
     root visits = playouts + 1 and legal best moves; both rates and their
     ratio. (c) The port's exporter writes the net as a v5 file, read back
     through load_checkpoint_for_inference: heads within the same bound of
-    the source net on the card; the GTP CLI with configs/gtp-p400.txt on
-    that file answers one 19x19 genmove with "=". (d) One b6c96-mix SGD
-    step at batch 256 on phase 13's chunks, card vs CPU as in 15(a), then
-    ``bench train --net b6c96-mix``: ms a step of the step alone. (e)
+    the source net on the card; the GTP CLI with configs/gtp-p400.txt at
+    100 playouts on that file answers one 19x19 genmove with "=". (d) One
+    b6c96-mix SGD step at batch 256 on phase 13's chunks, card vs CPU as in
+    15(a), then ``bench train --net b6c96-mix``: ms a step of the step alone. (e)
     ``bench profile --net b6c96-mix``: the device ms of the depthwise conv
     blocks' convolutions (their merged kernel and the grouped conv), by
     kernel, and their share of a search's busy time and wall.
 
+17. group: a world-size-1 NCCL process group (SAYURI_COORDINATOR on a
+    free localhost port, SAYURI_NUM_PROCS=1, SAYURI_PROC_ID=0), in child
+    processes: (a) the port of the JAX package's multi-chip dry run
+    (``parallel.dryrun``: one sharded train step of the 9x9 16-channel
+    net, eight moves of 9x9 self-play over the group, the invariants: each
+    all-reduce spans every rank, together they cover every parameter,
+    each rank holds the global batch over the world size), counted through
+    a wrapper around ``torch.distributed.all_reduce``, its kernels held
+    against their plain twins at its shapes; (b) one b6c96 SGD step at
+    batch 256 on phase 13's chunks under the group and without it, from
+    the same weights: equal bit for bit, both timed, the NCCL kernels'
+    share of the step; (c) ``python -m sayuri_tpu_torch --mode selfplay``
+    under the group, one round of 8 games with phase 13's config: no p0 in
+    the run id at world size 1, the chunks parse (the kernels line carries
+    `group_launches` and `group_by_shape`).
+
 Launch counters are set to 0 right before each main path (phases 5, 8-11,
-13, 14, 15(d), each b6c96-mix run of 16(b)) and read right after it. The second-to-last line is the kernels JSON
+13, 14, 15(d), each b6c96-mix run of 16(b), 17(a)) and read right after
+it. The second-to-last line is the kernels JSON
 (all eight kernels: launches on their path, max abs error against the plain
-version, kernel and plain ms, the bound, library call; the self-play and
-GTP launches and shapes); the last line is {"ok": true, "device": {...}}.
+version, kernel and plain ms with the plain version's device, the bound,
+library call; the self-play, GTP, RL-loop and group launches and shapes);
+the last line is {"ok": true, "device": {...}}.
 There is no CPU fallback: without a CUDA device the script fails.
 """
 
@@ -340,6 +365,7 @@ class LaneSpy:
     def __init__(self, LK):
         self.LK = LK
         self.calls = {}
+        self.seconds = {}
 
     def __enter__(self):
         LK = self.LK
@@ -351,7 +377,11 @@ class LaneSpy:
             return res, forked
 
         def chases(*args, **kw):
+            # run_chases_plain is chase_descents_plain's result alone: this
+            # times the plain twin itself, on the CPU
+            t0 = time.monotonic()
             res, descents = LK.chase_descents_plain(*args, **kw)
+            self.seconds["run_chases"] = time.monotonic() - t0
             self.calls["run_chases"] = (args, res, descents)
             return res
 
@@ -506,7 +536,7 @@ def check_shapes(torch, card, spy, tag, where):
 # phase 14: the GTP mode on the shipped config, two 9x9 endgames, the
 # benchmark mode
 GTP_CONFIG = ROOT / "configs/gtp-p400.txt"
-GTP_GENMOVES = 8
+GTP_GENMOVES = 4
 GTP_ANALYZE_S = 2.0          # the analyze stream runs this long before the next line
 ENDGAME_N, ENDGAME_PLAYOUTS, ENDGAME_MOVES = 9, 16, 100
 BENCH_QUERY = "bg:16:32"
@@ -650,9 +680,10 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
     try:
         feeder.start()
         with PlainGuard():
+            # --threads: a flag the JAX package ignores, ignored here too
             answers, timed = gtp_cli(torch, dev, ["--config", str(GTP_CONFIG), "--weights",
-                                                  str(wfile)], script, instream, out,
-                                     "19x19 GTP", on_line)
+                                                  str(wfile), "--threads", "4"], script,
+                                     instream, out, "19x19 GTP", on_line)
     finally:
         feeder.join(timeout=60)
         instream.close()
@@ -790,6 +821,10 @@ def train_step_parity(torch, dev, tdata, net_cfg, tag):
         planes, targets = next(iter(loader))
     finally:
         loader.close()
+    # g++ is on the card's host: the batch must come from the native codec
+    if not loader.codec or loader.python_parses or not loader.native_parses:
+        raise RuntimeError(f"train step, {tag}: the loader parsed {loader.native_parses} "
+                           f"samples natively and {loader.python_parses} in Python")
     boards = planes[..., 42].reshape(256, -1).sum(1)
     t0 = time.monotonic()
     trainers = {d: Trainer(net_cfg, TrainConfig(), seed=TRAIN_SEED, device=d)
@@ -830,8 +865,10 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
     sayuri_tpu_torch.tools.rl_loop`` with RL_ARGS on the card: round 2's
     actor loads round 1's gated .ckpt, the self-play kernels launch, the
     plain functions raise on a CUDA tensor meanwhile, and every kernel is
-    held against its plain twin at the shapes the loop gave it. Returns
-    (launches of (d), shapes of (d))."""
+    held against its plain twin at the shapes the loop gave it. (e) The
+    loader alone with the native codec and without, alternated, on phase
+    13's chunks and on seeded 19x19 chunks. Returns (launches of (d),
+    shapes of (d))."""
     import math
     import os
 
@@ -922,6 +959,24 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
           f"launches a step; top kernels (ms a step) "
           f"{[(n[:60], round(t, 3)) for n, t in res['top_kernels_ms']]}  [{card}]")
 
+    # (e) the loader alone with the native codec and without it, alternated,
+    # on phase 13's chunks and on seeded 19x19 chunks of the port's writer
+    seeded19 = write_seeded_chunks(work / "seeded19", 19)
+    for label, chunks in (("phase 13's chunks", tdata), ("seeded 19x19 chunks", seeded19)):
+        runs = {True: [], False: []}
+        for codec in (True, False, False, True):
+            r = bench.bench_loader(chunks, codec=codec, batches=CODEC_BATCHES)
+            parses = (r["native_parses"], r["python_parses"])
+            if r["codec"] != codec or min(parses) or not max(parses):
+                raise RuntimeError(f"loader, codec {codec}: {parses} samples parsed "
+                                   f"natively / in Python")
+            runs[codec].append(r["samples_per_s"])
+        on, off = (sum(runs[c]) / 2 for c in (True, False))
+        print(f"loader alone on {label} ({r['chunks']} chunks of {r['boards']} boards, "
+              f"{CODEC_BATCHES} batches of 256 a run; runs on, off, off, on): codec on "
+              f"{[round(x, 1) for x in runs[True]]}, off {[round(x, 1) for x in runs[False]]} "
+              f"samples/s; mean {on:.1f} vs {off:.1f}, x{on / off:.3f}  [{card}]")
+
     # (d) the RL loop
     spy = KernelSpy(TA, LK, FK, late=True)
     spy.install()
@@ -952,7 +1007,47 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
     return launches, shapes
 
 
+# phase 15(e): the loader alone, codec on and off
+CODEC_BATCHES = 8
+CODEC_FILES, CODEC_POSITIONS = 8, 256
+
+
+def write_seeded_chunks(out, n, seed=3):
+    """CODEC_FILES gzip chunks of CODEC_POSITIONS positions of n x n boards
+    from seeded arrays, through the port's native writer
+    (``native.serialize_positions``): a parse costs in proportion to the
+    text, not to how real the game is. Returns `out`."""
+    import gzip
+
+    import numpy as np
+
+    from sayuri_tpu_torch import native
+
+    rng = np.random.RandomState(seed)
+    hw, m = n * n, CODEC_POSITIONS
+    out.mkdir(parents=True)
+    for f in range(CODEC_FILES):
+        sc = np.zeros((m, native.NUM_SCALARS), np.float32)
+        sc[:, 0], sc[:, 1] = n, 7.5
+        sc[:, 2], sc[:, 4] = rng.randint(0, 2, m), rng.randint(0, 2, m)
+        sc[:, 5] = rng.randint(-1, 2, m)
+        sc[:, 6:10] = rng.uniform(-1, 1, (m, 4))
+        sc[:, 10:15] = rng.uniform(-60, 60, (m, 5))
+        sc[:, 15:18] = rng.rand(m, 3)
+        text = native.serialize_positions(
+            n, (rng.rand(m, native.NUM_BINARY_PLANES, hw) < 0.3).astype(np.float32),
+            rng.dirichlet(np.ones(hw + 1), m).astype(np.float32),
+            rng.dirichlet(np.ones(hw + 1), m).astype(np.float32),
+            rng.randint(-1, 2, (m, hw)).astype(np.float32), sc)
+        if text is None:
+            raise RuntimeError("the native chunk codec did not build")
+        with gzip.open(out / f"seeded{n}_{f:03d}.txt.gz", "wt", compresslevel=1) as fh:
+            fh.write(text)
+    return out
+
+
 # phase 16: the block families, through the b6c96-mix net
+MIX_GTP_PLAYOUTS = 100
 MIX = "b6c96-mix"
 MIX_SEED = 13
 MIX_BOARDS = (19, 13, 9)       # board sizes of 16(a)'s batch in the 19x19 buffer
@@ -983,10 +1078,10 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
     best moves; both rates and their ratio. (c) The port's exporter writes
     the net as a v5 file, load_checkpoint_for_inference reads it back: heads
     within EVAL_ATOL of the source net on the card; the GTP CLI with
-    configs/gtp-p400.txt on that file plays one 19x19 genmove. (d) One SGD
-    step of b6c96-mix at batch 256 on phase 13's chunks, card vs CPU
-    (train_step_parity), then ``bench train --net b6c96-mix``, the step
-    alone. (e) ``bench profile --net b6c96-mix``: the depthwise conv
+    configs/gtp-p400.txt at MIX_GTP_PLAYOUTS playouts on that file plays one
+    19x19 genmove. (d) One SGD step of b6c96-mix at batch 256 on phase
+    13's chunks, card vs CPU (train_step_parity), then ``bench train --net
+    b6c96-mix``, the step alone. (e) ``bench profile --net b6c96-mix``: the depthwise conv
     blocks' device ms and their share of a search."""
     import io
 
@@ -1050,11 +1145,14 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
     check_heads(again, got, f"{MIX} v5 file read back, on the card")
     script = ["boardsize 19", "clear_board", "genmove b", "quit"]
     t0 = time.monotonic()
-    answers, timed = gtp_cli(torch, dev, ["--config", str(GTP_CONFIG), "--weights", str(wfile)],
+    # the config's 400 playouts took 53-56 s here: MIX_GTP_PLAYOUTS
+    answers, timed = gtp_cli(torch, dev, ["--config", str(GTP_CONFIG), "--weights", str(wfile),
+                                          "--playouts", str(MIX_GTP_PLAYOUTS)],
                              script, io.StringIO("".join(f"{c}\n" for c in script)),
                              io.StringIO(), f"{MIX} GTP")
     (_, secs, playouts), = timed
-    print(f"{MIX} GTP (gtp-p400, the v5 file): genmove b -> {answers[2]!r} in {secs:.3f} s, "
+    print(f"{MIX} GTP (gtp-p400 at {MIX_GTP_PLAYOUTS} playouts, the v5 file): genmove b -> "
+          f"{answers[2]!r} in {secs:.3f} s, "
           f"{playouts} playouts, {playouts / secs:.1f} B=1 playouts/s; the session "
           f"{time.monotonic() - t0:.1f} s  [{card}]")
 
@@ -1083,6 +1181,306 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
     if not prof["depthwise_kernels_ms"]:
         raise RuntimeError(f"{MIX} profile: no kernel ran in a depthwise conv range")
     print(f"blocks phase: {time.monotonic() - t_phase:.1f} s")
+
+
+# phase 17: the process group (world size 1, NCCL) in a child process
+GROUP_STEPS = 10          # timed steps a block (blocks: none, group, group, none)
+GROUP_PROFILED_STEPS = 3
+GROUP_MICRO_CALLS = 620   # the group step's 62 all-reduces, ten times
+GROUP_GAMES = 8
+GROUP_PLAYOUTS, GROUP_FAST_PLAYOUTS = 4, 2   # (c): phase 13's config, fewer playouts
+GROUP_KERNELS = ("step_and_analyze", "board_analysis", "ladder_prep", "run_greedy",
+                 "run_chases", "flood", "chain_labels")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def group_env(port):
+    """The environment that names a world-size-1 group at localhost:port."""
+    import os
+
+    return dict(os.environ, SAYURI_COORDINATOR=f"localhost:{port}", SAYURI_NUM_PROCS="1",
+                SAYURI_PROC_ID="0", PYTHONPATH=str(ROOT))
+
+
+def group_child(result_path, tdata):
+    """Phase 17's child, run as ``chip_smoke.py --group-child RESULT TDATA``
+    in the environment of ``group_env``: it joins the group (NCCL on the
+    card), wraps torch.distributed.all_reduce to record each call's elements
+    and group size, and (a) runs the dry run (``parallel.dryrun``: a sharded
+    train step and its invariants, eight moves of 9x9 self-play) with the
+    kernel counters set to 0 before it and read after, every kernel it
+    launched held against its plain twin at the shapes it gave them; (b)
+    takes one b6c96 SGD step at batch 256 on a batch of phase 13's chunks
+    with the group's Trainer and with a Trainer without one, from the same
+    seeded weights (cuDNN deterministic, TF32 off): loss parts, parameters
+    and statistics must be equal, bit for bit; then times both (blocks of
+    GROUP_STEPS steps: none, group, group, none; the collectives' share is
+    the extra wall time of the group step), traces a few steps of each on
+    the host and the card (``trace_group_step``) and times the all-reduce
+    alone on the idle card. Writes a JSON of what it read to RESULT."""
+    import torch
+    import torch.distributed as dist
+
+    from sayuri_tpu_torch import bench
+    from sayuri_tpu_torch.models.network import NetConfig
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
+    from sayuri_tpu_torch.parallel import distributed as DI
+    from sayuri_tpu_torch.parallel import mesh as M
+    from sayuri_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sayuri_tpu_torch.train import dataset as DS
+    from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
+
+    card = bench.device_info()
+    t0 = time.monotonic()
+    if not DI.initialize_from_env(device="cuda"):
+        raise RuntimeError("group child: the environment names no group")
+    mesh = M.make_mesh(1)
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise RuntimeError(f"group child: backend {dist.get_backend()}, device {mesh.device}")
+    res = {"join_s": time.monotonic() - t0, "backend": dist.get_backend(), "world": mesh.size}
+    calls = []
+    real = dist.all_reduce
+
+    def all_reduce(tensor, *args, **kw):
+        calls.append((tensor.numel(), dist.get_world_size(kw.get("group"))))
+        return real(tensor, *args, **kw)
+
+    dist.all_reduce = all_reduce
+
+    # (a) the dry run
+    spy = KernelSpy(TA, LK, FK, late=True)
+    spy.install()
+    for mod in (TA, LK, FK):
+        mod.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        d = dryrun_multichip(mesh, calls)
+        torch.cuda.synchronize()
+    finally:
+        spy.remove()
+    res["dryrun_s"] = time.monotonic() - t0
+    launches = {**TA.LAUNCHES, **LK.LAUNCHES, **FK.LAUNCHES}
+    missing = [k for k in GROUP_KERNELS if not launches[k]]
+    if missing:
+        raise RuntimeError(f"group dry run: {missing} never launched ({launches})")
+    res["dryrun"] = {k: d[k] for k in ("loss", "world", "local_batch", "n_params",
+                                       "all_reduces", "all_reduced_elements")}
+    res["launches"] = launches
+    res["shapes"] = check_shapes(torch, card, spy, "group dry run",
+                                 lambda k, n: f"launch {k} of {n}")
+
+    # (b) the b6c96 step under the group and without it
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    files, _ = DS.select_window_chunks(tdata)
+    loader = DS.ChunkLoader(files, nn_size=19, batch_size=256, down_sample_rate=1,
+                            policy_surprise_factor=0.0, shuffle_capacity=256, seed=0)
+    try:
+        planes, targets = next(iter(loader))
+    finally:
+        loader.close()
+    planes = torch.as_tensor(planes, device=mesh.device)
+    targets = {k: torch.as_tensor(v, device=mesh.device) for k, v in targets.items()}
+    trainers = {"none": Trainer(NetConfig(), TrainConfig(), seed=TRAIN_SEED, device=mesh.device),
+                "group": Trainer(NetConfig(), TrainConfig(), seed=TRAIN_SEED, mesh=mesh)}
+    parts = {}
+    for k, tr in trainers.items():
+        calls.clear()
+        parts[k] = tr.train_batch(planes, targets)
+        res[f"{k}_all_reduces"] = len(calls)
+    torch.cuda.synchronize()
+    a, b = trainers["none"], trainers["group"]
+    diff = max([abs(parts["none"][k] - parts["group"][k]) for k in parts["none"]]
+               + [(x - y).abs().max().item() for x, y in zip(a.params, b.params)]
+               + [(x - y).abs().max().item() for x, y in zip(a.net.buffers(), b.net.buffers())])
+    res["step_equal"] = diff == 0.0
+    res["step_max_diff"] = diff
+    res["loss"] = parts["group"]["loss"]
+    ms = {"none": [], "group": []}
+    for k in ("none", "group", "group", "none"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(GROUP_STEPS):
+            trainers[k].train_batch(planes, targets)
+        torch.cuda.synchronize()
+        ms[k].append(1e3 * (time.monotonic() - t0) / GROUP_STEPS)
+    res["step_ms"] = ms
+    res["trace"] = trace_group_step(torch, trainers, planes, targets)
+    # the all-reduce alone: one call a BN's size on the idle card, host time
+    x = torch.ones(97, device=mesh.device)
+    for _ in range(10):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(GROUP_MICRO_CALLS):
+        dist.all_reduce(x)
+    host_ms = 1e3 * (time.monotonic() - t0)
+    torch.cuda.synchronize()
+    res["micro_ms_a_call"] = host_ms / GROUP_MICRO_CALLS
+    res["micro_synced_ms_a_call"] = 1e3 * (time.monotonic() - t0) / GROUP_MICRO_CALLS
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) = flags
+    DI.shutdown()
+    Path(result_path).write_text(json.dumps(res))
+
+
+# the host's CUDA calls that wait for the card or serialize its streams
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy", "cudaMemcpyAsync", "cudaLaunchHostFunc", "cudaStreamWaitEvent",
+              "cudaEventRecord", "cudaEventQuery")
+
+
+def trace_group_step(torch, trainers, planes, targets):
+    """Where the group step's extra time goes: GROUP_PROFILED_STEPS steps of
+    each trainer under torch.profiler (host and card). For each: the wall
+    and the card's busy time a step; the host's ops a step (calls, self ms)
+    of the all-reduces, the CUDA calls of SYNC_CALLS and the ops whose host
+    time grew most from the plain step to the group step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sayuri_tpu_torch import bench
+
+    out, ops = {}, {}
+    n = GROUP_PROFILED_STEPS
+    for k in ("none", "group"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                trainers[k].train_batch(planes, targets)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.monotonic() - t0) / n
+        kernels, busy = bench._device_kernels(prof.events())
+        ops[k] = {e.key: (e.count / n, e.self_cpu_time_total / 1e3 / n,
+                          e.cpu_time_total / 1e3 / n) for e in prof.key_averages()}
+        allreduce = {key: v for key, v in ops[k].items() if "allreduce" in key.lower()
+                     or "all_reduce" in key.lower()}
+        out[k] = {
+            "wall_ms": wall, "busy_ms": busy / 1e3 / n,
+            "nccl_kernels": sum(1 for e in kernels if "nccl" in e.name.lower()) / n,
+            "nccl_ms": sum(e.time_range.elapsed_us() for e in kernels
+                           if "nccl" in e.name.lower()) / 1e3 / n,
+            "allreduce": {key: [round(c, 2), round(tot, 4)] for key, (c, _, tot)
+                          in allreduce.items()},
+            "sync_calls": {key: [round(ops[k][key][0], 2), round(ops[k][key][1], 4)]
+                           for key in SYNC_CALLS if key in ops[k]},
+        }
+    keys = set(ops["none"]) | set(ops["group"])
+    grew = sorted(keys, key=lambda key: ops["group"].get(key, (0, 0, 0))[1]
+                  - ops["none"].get(key, (0, 0, 0))[1], reverse=True)
+    out["grew"] = [[key, round(ops["none"].get(key, (0, 0, 0))[0], 2),
+                    round(ops["group"].get(key, (0, 0, 0))[0], 2),
+                    round(ops["none"].get(key, (0, 0, 0))[1], 4),
+                    round(ops["group"].get(key, (0, 0, 0))[1], 4)] for key in grew[:10]]
+    return out
+
+
+def run_group_phase(torch, card, out_dir, work):
+    """Phase 17: a world-size-1 NCCL group formed from SAYURI_COORDINATOR
+    (localhost, a free port), SAYURI_NUM_PROCS=1 and SAYURI_PROC_ID=0, in
+    child processes (the collectives run at world size 1: nothing skips
+    them). (a)+(b): ``group_child``. (c) ``python -m sayuri_tpu_torch --mode
+    selfplay`` under the group for one round of GROUP_GAMES games with
+    phase 13's config and weights, at GROUP_PLAYOUTS / GROUP_FAST_PLAYOUTS
+    playouts: the chunks carry no p0 suffix at world size 1 (as in the JAX
+    package), and parse natively and in Python alike.
+    Returns (launches of (a), shapes of (a))."""
+    import gzip
+    import subprocess
+
+    import numpy as np
+
+    from sayuri_tpu_torch.train import dataset as DS
+
+    t_phase = time.monotonic()
+    result = work / "group.json"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--group-child",
+                           str(result), str(out_dir / "tdata")],
+                          env=group_env(free_port()), cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    print(proc.stdout, end="")
+    if proc.returncode != 0 or not result.exists():
+        raise RuntimeError(f"group child failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    res = json.loads(result.read_text())
+    d = res["dryrun"]
+    print(f"group: {res['backend']} world size {res['world']}, joined in {res['join_s']:.1f} s; "
+          f"dry run in {res['dryrun_s']:.1f} s: loss {d['loss']:.4f}, {d['all_reduces']} "
+          f"all-reduces in its train step over every rank, {d['all_reduced_elements']} elements "
+          f">= {d['n_params']} parameters, {d['local_batch']} rows a rank; eight 9x9 moves; "
+          f"launches { {k: v for k, v in res['launches'].items() if v} }")
+    if not res["step_equal"]:
+        raise RuntimeError(f"b6c96 step under the group differs from the step without it by "
+                           f"{res['step_max_diff']}")
+    none_ms, group_ms = (float(np.mean(res["step_ms"][k])) for k in ("none", "group"))
+    print(f"b6c96 SGD step at batch 256 on phase 13's chunks, world-size-1 NCCL group vs no "
+          f"group: loss parts, parameters and statistics equal bit for bit ({res['loss']:.6f}); "
+          f"{res['group_all_reduces']} all-reduces a step (none without the group); ms a step "
+          f"none {res['step_ms']['none']}, group {res['step_ms']['group']} (blocks of "
+          f"{GROUP_STEPS}: none, group, group, none): {none_ms:.3f} vs {group_ms:.3f}, "
+          f"x{group_ms / none_ms:.4f}: the collectives' share of the group step "
+          f"{100 * (group_ms - none_ms) / group_ms:.2f}% of its wall time  [{card}]")
+    tr = res["trace"]
+    for k in ("none", "group"):
+        t = tr[k]
+        print(f"  traced, {k}: {t['wall_ms']:.3f} ms a step, card busy {t['busy_ms']:.3f} ms "
+              f"(idle share {1 - t['busy_ms'] / t['wall_ms']:.4f}), NCCL kernels "
+              f"{t['nccl_kernels']:.0f} ({t['nccl_ms']:.3f} ms); all-reduce ops a step "
+              f"[calls, host ms with children] {t['allreduce']}; CUDA calls a step "
+              f"[calls, host ms] {t['sync_calls']}")
+    print(f"  host ops that grew most a step [op, calls none, calls group, self ms none, "
+          f"self ms group]: {tr['grew']}")
+    print(f"  dist.all_reduce alone, 97 floats on the idle card: {res['micro_ms_a_call']:.4f} "
+          f"ms of host time a call, {res['micro_synced_ms_a_call']:.4f} ms with the card's "
+          f"work ({GROUP_MICRO_CALLS} calls)  [{card}]")
+
+    # (c) the self-play CLI under the group
+    wdir, sp_out = work / "weights", work / "group-selfplay"
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sayuri_tpu_torch", "--mode", "selfplay",
+         "--config", str(ROOT / "configs/selfplay-gumbel-p150.txt"),
+         "--playouts", str(GROUP_PLAYOUTS), "--fastsearch-playouts", str(GROUP_FAST_PLAYOUTS),
+         "--parallel-games", str(GROUP_GAMES), "--num-games", str(GROUP_GAMES),
+         "--weights-dir", str(wdir), "--target-directory", str(sp_out)],
+        env=group_env(free_port()), cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"selfplay under the group failed:\n{proc.stderr[-4000:]}")
+    runs = [p.name for p in (sp_out / "tdata").iterdir()] + \
+        [p.name for p in (sp_out / "vdata").iterdir()]
+    chunks = sorted(sp_out.glob("[tv]data/*/*.txt.gz"))
+    if not chunks or any("p0" in r for r in runs):
+        raise RuntimeError(f"selfplay under the group: runs {runs}, {len(chunks)} chunks")
+    n = 0
+    for f in chunks:
+        for s in DS.read_chunk(f):
+            want = DS.Sample(s.lines).parse()
+            got = s.parse_native()
+            if got.board_size not in (7, 9) or any(
+                    getattr(got, k).tobytes() != getattr(want, k).tobytes()
+                    for k in ("planes", "prob", "aux_prob", "ownership")):
+                raise RuntimeError(f"{f.name}: a position parses differently natively")
+            n += 1
+    with gzip.open(chunks[0], "rt") as fh:
+        head = fh.read(8)
+    print(f"selfplay CLI under the group: {GROUP_GAMES} games in {cli_s:.1f} s with start-up "
+          f"({proc.stdout.strip().splitlines()[-1]}); run ids {sorted(set(runs))} (no p0 at "
+          f"world size 1); {len(chunks)} chunks, {n} positions parse natively as in Python "
+          f"(first lines {head.split()})  [{card}]")
+    print(f"group phase: {time.monotonic() - t_phase:.1f} s")
+    return res["launches"], res["shapes"]
 
 
 def main():
@@ -1257,6 +1655,7 @@ def main():
             lanes_b256 = (args, g_dev, c_dev, n)
             plies = {"run_greedy": (g_args, g_steps, 2, "steps"),
                      "run_chases": (c_args, c_descents, 1, "descents")}
+            chase_cpu_ms = spy.seconds["run_chases"] * 1e3
     args, g_dev, c_dev, n = lanes_b256
     timed = (
         ("ladder_prep", TA.ladder_prep, TA.ladder_prep_plain, args),
@@ -1273,10 +1672,17 @@ def main():
             r["nbytes"] = tensor_bytes(torch, (a, fn(*a)))
             r["ops"] = OPS_PER_CELL * a[0].numel()
         r["ms"] = time_card(torch, fn, a)
-        r["plain_ms"] = time_card(torch, plain, a, iters=1, warmup=0)
+        if name == "run_chases":
+            # the plain chase on the card took 76-81 s here: its time on the
+            # CPU, on the same lanes, from the ladder_planes_batch run above;
+            # plain_device says where each plain_ms was taken
+            r["plain_ms"], r["plain_device"] = chase_cpu_ms, "cpu"
+        else:
+            r["plain_ms"] = time_card(torch, plain, a, iters=1, warmup=0)
         rec[name] = r
         print(f"{name} B={PARITY_B} 19x19: kernel {r['ms']:.4f} ms, plain torch on "
-              f"card {r['plain_ms']:.2f} ms, {r['cells']} outputs equal  [{card}]")
+              f"{r.get('plain_device', 'card')} {r['plain_ms']:.2f} ms, {r['cells']} outputs "
+              f"equal  [{card}]")
     # a launch lasts as long as its longest lane: that lane alone, timed
     searches = {name: (fn, a) for name, fn, _, a in timed if name in plies}
     for name, (lanes, lane_plies, _, unit) in plies.items():
@@ -1869,6 +2275,11 @@ def main():
         run_blocks_phase(torch, np, dev, card, out_dir / "tdata", work, reset_counts, counts,
                          check_launches, check_roots)
         phase_done("block families")
+
+        # ---- 17. the process group ----
+        phase("group")
+        group_launches, group_shapes = run_group_phase(torch, card, out_dir, work)
+        phase_done("group")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1906,6 +2317,9 @@ def main():
             "gtp_by_shape": gtp_shapes.get(name, []),
             "rl_launches": rl_launches[name],
             "rl_by_shape": rl_shapes.get(name, []),
+            "group_launches": group_launches[name],
+            "group_by_shape": group_shapes.get(name, []),
+            "plain_device": r.get("plain_device", "cuda"),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))
@@ -1918,6 +2332,9 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--group-child"]:
+            group_child(*sys.argv[2:4])
+            sys.exit(0)
         code = main()
     except Exception:
         traceback.print_exc()

@@ -6,7 +6,9 @@
   v5 weight file of --weights in bf16; weightless without one);
 - ``selfplay``: the self-play pipe on one card, which writes training
   chunks, SGFs and query counts to --target-directory with the newest v5
-  weight file of --weights-dir (weightless without one);
+  weight file of --weights-dir (weightless without one); one process a
+  card when the environment names a group (``parallel.distributed``), each
+  rank with its own --parallel-games lanes and files;
 - ``benchmark``: the playout rate of the search with root ladder planes
   over the --benchmark-query ``bg:BATCH:PLAYOUTS`` queries.
 
@@ -83,22 +85,33 @@ def run_gtp(opts: Options, device="cuda"):
 
 
 def run_selfplay(opts: Options, device="cuda"):
+    from sayuri_tpu_torch.parallel import distributed as DI, mesh as M
     from sayuri_tpu_torch.selfplay.pipe import SelfPlayPipe
 
-    pipe = SelfPlayPipe(
-        out_dir=opts.get("target_directory") or "selfplay-out",
-        boardsize=opts.get("boardsize"),
-        komi=opts.get("komi"),
-        parallel_games=opts.get("parallel_games"),
-        search_cfg=opts.search_config(),
-        sp_cfg=opts.selfplay_config(),
-        weights_dir=opts.get("weights_dir") or None,
-        queries=opts.get("selfplay_query"),
-        device=device,
-        handicap_fair_komi_prob=opts.get("handicap_fair_komi_prob"),
-    )
-    max_games = opts.get("num_games") or opts.get("parallel_games")
-    pipe.loop(max_games)
+    # a group when the environment names one (SAYURI_COORDINATOR /
+    # SAYURI_NUM_PROCS / SAYURI_PROC_ID, or torchrun's variables): one
+    # process a card, each playing its own --parallel-games lanes; a group
+    # the caller joined stays joined
+    joins = not torch.distributed.is_initialized()
+    mesh = M.make_mesh() if DI.initialize_from_env(device=device) else None
+    try:
+        pipe = SelfPlayPipe(
+            out_dir=opts.get("target_directory") or "selfplay-out",
+            boardsize=opts.get("boardsize"),
+            komi=opts.get("komi"),
+            parallel_games=opts.get("parallel_games"),
+            search_cfg=opts.search_config(),
+            sp_cfg=opts.selfplay_config(),
+            weights_dir=opts.get("weights_dir") or None,
+            queries=opts.get("selfplay_query"),
+            device=device,
+            handicap_fair_komi_prob=opts.get("handicap_fair_komi_prob"),
+            mesh=mesh,
+        )
+        pipe.loop(opts.get("num_games") or opts.get("parallel_games"))
+    finally:
+        if joins:
+            DI.shutdown()
     print(f"selfplay done: {pipe.games_done} games -> {pipe.out_dir}")
     return pipe
 

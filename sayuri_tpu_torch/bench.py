@@ -51,7 +51,7 @@ B=1 playouts/s and seconds a playout, and the median seconds of a genmove
 that searches a new tree (``gtp_fresh_genmove_s_19x19_b6c96``: its
 playouts do not depend on how much of the last tree a move kept).
 
-    python -m sayuri_tpu_torch.bench train [--chunks DIR] [--net NET]
+    python -m sayuri_tpu_torch.bench train [--chunks DIR [--codec on|off]] [--net NET]
 
 times the trainer: b6c96 (``NetConfig()``) in the 19x19 buffer, batch 256
 (the TrainConfig default), SGD, f32 with TF32 off (the bench sets the two
@@ -66,7 +66,10 @@ more readings, beside the board sizes its batches held: the loader alone
 (20 batches drained with no step), the 50 steps fed by it (samples/s, the
 share of the wall time the step loop waits on it, ms a step inside
 train_batch), and 20 more steps with the interpreter's thread switch
-interval at 0.5 ms instead of 5 ms. Prints ONE JSON line.
+interval at 0.5 ms instead of 5 ms. The loader parses each kept sample
+with the native chunk codec when it builds; ``--codec on`` requires it,
+``--codec off`` parses in Python (``bench_loader`` times the loader alone
+either way). Prints ONE JSON line.
 
     python -m sayuri_tpu_torch.bench kernels-ab OLD_CSRC_DIR
 
@@ -387,18 +390,56 @@ def train_batch_seeded(batch: int):
     }
 
 
+def _loader(chunks, batch, codec=None):
+    """ChunkLoader over the chunks under `chunks` with train_worker's
+    settings (LoopSetting defaults) in the 19x19 buffer; (loader, files)."""
+    from sayuri_tpu_torch.train import dataset as DS
+    from sayuri_tpu_torch.train.setting import LoopSetting
+
+    loop = LoopSetting()
+    files, _ = DS.select_window_chunks(str(chunks))
+    return DS.ChunkLoader(files, nn_size=19, batch_size=batch,
+                          down_sample_rate=loop.down_sample_rate,
+                          policy_surprise_factor=loop.policy_surprise_factor,
+                          shuffle_capacity=max(256, loop.buffer_size // 64),
+                          virtual_buffsize=64, seed=0, codec=codec), files
+
+
+def bench_loader(chunks, codec=None, batch: int = 256, batches: int = LOADER_SIDE_STEPS):
+    """The loader alone over the chunks under `chunks` (train_worker's
+    settings, 19x19 buffer): `batches` batches drained after one, with the
+    native codec (`codec` True), the Python parse (False) or whichever
+    builds (None). Returns samples/s, the board sizes of the batches, and
+    the samples each parse took."""
+    import numpy as np
+
+    loader, files = _loader(chunks, batch, codec)
+    try:
+        it = iter(loader)
+        next(it)
+        t0 = time.monotonic()
+        drained = [next(it) for _ in range(batches)]
+        dt = time.monotonic() - t0
+    finally:
+        loader.close()
+    cells = np.concatenate([p[..., -1].sum((1, 2)) for p, _ in drained])
+    return {"samples_per_s": batch * batches / dt, "seconds": dt, "batches": batches,
+            "codec": loader.codec, "native_parses": loader.native_parses,
+            "python_parses": loader.python_parses, "chunks": len(files),
+            "boards": sorted({int(round(float(c) ** 0.5)) for c in cells})}
+
+
 def bench_train(chunks=None, device="cuda", batch: int = 256, warmup: int = 5,
-                steps: int = 50, net: str = "b6c96"):
+                steps: int = 50, net: str = "b6c96", codec=None):
     """Time the trainer of `net` (NETS) at 19x19 (SGD, f32, TF32 off): `steps` steps
     on one device-resident batch after `warmup`, then, when `chunks` (a
     directory) is given, ChunkLoader with train_worker's settings after
     `warmup` steps: the loader alone, `steps` steps fed by it, and steps
-    fed by it at a short thread switch interval. Returns a dict."""
+    fed by it at a short thread switch interval. `codec`: the loader's
+    (None: the native codec when it builds). Returns a dict."""
     import numpy as np
 
-    from sayuri_tpu_torch.train import dataset as DS
     from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
-    from sayuri_tpu_torch.train.setting import LoopSetting
 
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -437,13 +478,8 @@ def bench_train(chunks=None, device="cuda", batch: int = 256, warmup: int = 5,
                                              key=lambda kv: -kv[1])[:6])
         if chunks is None:
             return res
-        loop = LoopSetting()
-        files, _ = DS.select_window_chunks(str(chunks))
-        loader = DS.ChunkLoader(files, nn_size=19, batch_size=batch,
-                                down_sample_rate=loop.down_sample_rate,
-                                policy_surprise_factor=loop.policy_surprise_factor,
-                                shuffle_capacity=max(256, loop.buffer_size // 64),
-                                virtual_buffsize=64, seed=0)
+        loader, files = _loader(chunks, batch, codec)
+        res["codec"] = loader.codec
         side = min(steps, LOADER_SIDE_STEPS)
         switch = sys.getswitchinterval()
         try:
@@ -815,8 +851,15 @@ def main():
         }))
         return
     if args and args[0] == "train":
+        codec = None
+        if "--codec" in args:
+            i = args.index("--codec")
+            if args[i + 1:i + 2] not in (["on"], ["off"]):
+                sys.exit("bench train: --codec takes on or off")
+            codec = args[i + 1] == "on"
+            del args[i:i + 2]
         chunks = args[2] if args[1:2] == ["--chunks"] else None
-        res = bench_train(chunks=chunks, net=net)
+        res = bench_train(chunks=chunks, net=net, codec=codec)
         print(json.dumps({
             "metric": TRAIN_METRIC.replace("b6c96", net),
             "value": res["step_samples_per_s"],

@@ -11,12 +11,16 @@ The port runs the `gtp`, `selfplay` and `benchmark` modes.
 ``check_gtp_flags``, ``check_selfplay_flags`` and
 ``check_benchmark_flags`` raise for every option that was given on the
 command line or in a config file and that the mode does not read yet, so
-that no flag is silently dropped.
+that no flag is silently dropped. The gtp and benchmark modes accept the
+options that no mode of the JAX package acts on (``NOOP_OPTIONS``:
+``--threads``, ``--gpu``, ``--no-fp16`` and the like), log them once and
+ignore them, as the JAX package does; the selfplay mode refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import shlex
 from typing import Any
 
@@ -138,7 +142,8 @@ OPTIONS: dict[str, Opt] = {
     "fixed_nn_boardsize": Opt(0, 0, 25),
     # reference CLI flags that the JAX package accepts and ignores (device
     # lists, host threading, fp16/winograd kernel selection, virtual loss);
-    # the port parses them and its selfplay mode refuses them
+    # the port's gtp and benchmark modes ignore them (NOOP_OPTIONS), its
+    # selfplay mode refuses them
     "gpu": Opt(0, 0, 1024, multi=True),
     "gpu_waittime": Opt(0, 0, 1 << 30),
     "threads": Opt(0, 0, 4096),
@@ -208,6 +213,16 @@ BENCHMARK_OPTIONS = _SEARCH_OPTIONS | {
 }
 # flags that need the pattern-gammas port
 _GAMMAS_OPTIONS = ("patterns_file", "gammas_policy_factor")
+# options that no mode of the JAX package acts on: the gtp and benchmark
+# modes accept and ignore them, as the JAX package does, and log them once
+# (--scoring-rule is not among them: both packages parse it and neither
+# reads it, and the port refuses it rather than play under area scoring
+# what was asked for under another rule)
+NOOP_OPTIONS = frozenset({
+    "gpu", "gpu_waittime", "threads", "no_fp16", "no_winograd", "virtual_loss_count",
+    "early_symm_cache", "fixed_nn_boardsize", "quiet", "analysis_verbose", "batch_size",
+    "always_completed_q_policy",
+})
 
 
 class Options:
@@ -307,6 +322,13 @@ class Options:
 
     def _check_flags(self, mode, reads):
         unsupported = sorted(self._given - reads)
+        if mode in ("gtp", "benchmark"):
+            ignored = [k for k in unsupported if k in NOOP_OPTIONS]
+            if ignored:
+                logging.getLogger(__name__).warning(
+                    "--mode %s ignores %s, as the JAX package does", mode,
+                    ", ".join("--" + k.replace("_", "-") for k in ignored))
+            unsupported = [k for k in unsupported if k not in NOOP_OPTIONS]
         if unsupported:
             flags = ", ".join("--" + k.replace("_", "-") for k in unsupported)
             gammas = [f for f in _GAMMAS_OPTIONS if f in unsupported]
@@ -323,12 +345,12 @@ class Options:
     def check_gtp_flags(self):
         """Raise ValueError naming every given option the gtp mode does not
         read (--patterns and --gammas-policy-factor among them, until the
-        pattern gammas are ported)."""
+        pattern gammas are ported), apart from NOOP_OPTIONS, which it logs."""
         self._check_flags("gtp", GTP_OPTIONS)
 
     def check_benchmark_flags(self):
         """Raise ValueError naming every given option the benchmark mode
-        does not read."""
+        does not read, apart from NOOP_OPTIONS, which it logs."""
         self._check_flags("benchmark", BENCHMARK_OPTIONS)
 
     def search_config(self, max_nodes=None, **over):

@@ -109,11 +109,14 @@ class MaskedBatchNorm(nn.Module):
     """Masked batch norm. Inference (``eval()``): x * rsqrt(var + eps) *
     gamma + (beta - mean * scale), then times the mask. Training: masked
     batch renorm, r in [1/rmax, rmax] and d in [-dmax, dmax] (rmax=1, dmax=0
-    is plain masked batch norm)."""
+    is plain masked batch norm); with ``sync`` set to a mesh, over the
+    global batch of every rank, as the JAX step computes it under a mesh."""
 
     def __init__(self, features: int, use_gamma: bool, eps: float = 1e-5,
                  rmax: float = 1.0, dmax: float = 0.0):
         super().__init__()
+        # a parallel.mesh.Mesh: training statistics over every rank's batch
+        self.sync = None
         self.eps = eps
         self.rmax, self.dmax = rmax, dmax
         self.beta = nn.Parameter(torch.zeros(features))
@@ -135,16 +138,28 @@ class MaskedBatchNorm(nn.Module):
         xf = x.float()
         # the divisor counts on-board cells only, not B * H * W
         mask_sum = mask.float().sum()
-        mean = xf.sum((0, 2, 3)) / mask_sum
+        total = xf.sum((0, 2, 3))
+        batch = x.shape[0]
+        if self.sync is not None:
+            # the global batch's sums: one all-reduce for the sums and the
+            # count, one for the centred squares, each summed back over the
+            # ranks in the backward
+            both = self.sync.all_reduce_sum(torch.cat([total, mask_sum[None]]))
+            total, mask_sum = both[:-1], both[-1]
+            batch *= self.sync.size
+        mean = total / mask_sum
         zm = (xf - mean[:, None, None]) * mask
-        var = torch.square(zm).sum((0, 2, 3)) / mask_sum
+        sq = torch.square(zm).sum((0, 2, 3))
+        if self.sync is not None:
+            sq = self.sync.all_reduce_sum(sq)
+        var = sq / mask_sum
         std = torch.sqrt(var + self.eps)
         r_std = torch.sqrt(self.var + self.eps)
         r = torch.clamp(std.detach() / r_std, 1.0 / self.rmax, self.rmax)
         d = torch.clamp((mean.detach() - self.mean) / r_std, -self.dmax, self.dmax)
         out = (xf - mean[:, None, None]) / std[:, None, None] * r[:, None, None] \
             + d[:, None, None]
-        m = BN_MOMENTUM * math.sqrt(x.shape[0] / BN_BASIC_BATCH)
+        m = BN_MOMENTUM * math.sqrt(batch / BN_BASIC_BATCH)
         with torch.no_grad():
             self.mean.add_(m * (mean - self.mean))
             self.var.add_(m * (var - self.var))

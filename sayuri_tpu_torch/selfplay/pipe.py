@@ -1,10 +1,20 @@
 """Self-play pipe: game generation, data writing and weights refresh
-(PyTorch port of sayuri_tpu.selfplay.pipe, one process on one card).
+(PyTorch port of sayuri_tpu.selfplay.pipe, one process on one card, or one
+process a card over a mesh).
 
 One batched actor plays whole game batches; the filesystem contract is the
 reference's: gzip chunks to tdata/<run_id>/ and vdata/<run_id>/ (90/10
 split), SGFs to sgf/, query counts to net_queries/, and "reload when new
 weights appear" against weights_dir (the newest v5 file by mtime).
+
+With a mesh (``parallel.mesh.Mesh``) each rank plays its own
+``parallel_games`` lanes and writes its own files (the run id ends in
+``p{rank}`` when the world size is over 1). Rank 0 decides whether to
+reload and which file, and broadcasts the decision and then the weights:
+the JAX pipe lets each host poll on its own, and a rank that saw a new file
+one poll late would skip a broadcast the others wait in. Each rank's
+generator is seeded with the seed plus its rank (the JAX package splits
+one key over the global lanes instead).
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.game.types import TERRITORY_RULE
 from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
 from sayuri_tpu_torch.models.evaluator import make_dummy_eval_fn, make_eval_fn
+from sayuri_tpu_torch.models.network import SayuriNet
+from sayuri_tpu_torch.parallel import distributed as DI
 from sayuri_tpu_torch.selfplay import data as D
 from sayuri_tpu_torch.selfplay.actor import SelfplayActor, SelfplayConfig, assemble_targets
 from sayuri_tpu_torch.selfplay.randomize import GameRandomizer, parse_queries
@@ -50,6 +62,7 @@ class SelfPlayPipe:
         seed: int = 0,
         device="cuda",
         handicap_fair_komi_prob: float = 0.0,
+        mesh=None,
     ):
         self.out_dir = Path(out_dir)
         self.sp_cfg = sp_cfg or SelfplayConfig()
@@ -75,10 +88,13 @@ class SelfPlayPipe:
         self.parallel_games = parallel_games
         self.weights_dir = weights_dir
         self.search_cfg = search_cfg or SearchConfig(max_nodes=176, gumbel=True)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.rank, self.world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.seed = seed
-        self.gen = torch.Generator(device=self.device).manual_seed(seed * 7919)
-        self.run_id = f"{int(time.time()):x}{seed:02x}"
+        self.gen = torch.Generator(device=self.device).manual_seed(seed * 7919 + self.rank)
+        self.run_id = f"{int(time.time()):x}{seed:02x}" + (
+            f"p{self.rank}" if self.world > 1 else "")
         self.current_weights = None
         self.games_done = 0
         self.rounds = 0
@@ -90,11 +106,14 @@ class SelfPlayPipe:
 
     def _build_actor(self):
         path = newest_weights(self.weights_dir)
+        if self.mesh is not None:
+            path = DI.broadcast_object_from_host0(path)
+        self.net = None
         if path:
-            from sayuri_tpu_torch.models.weights_io import load_checkpoint_for_inference
-
-            _, net = load_checkpoint_for_inference(path, boardsize=self.env.n)
-            net = net.to(self.device).eval()
+            net = self._load_net(path).to(self.device).eval()
+            if self.mesh is not None:
+                DI.broadcast_from_host0(net.state_dict())
+            self.net = net
             # random-symmetry leaf evaluation; bf16 on the card
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
             eval_fn = make_eval_fn(self.env, net, symmetry="random", ladder_mode="root",
@@ -124,17 +143,34 @@ class SelfPlayPipe:
         self.randomizer = GameRandomizer(self.env, self.dist, eval_fn,
                                          fair_komi_search=fair_komi_search)
 
+    def _load_net(self, path):
+        """The net of a weight file; with a mesh, rank 0 reads the file and
+        the other ranks build the same net from its config (the weights
+        follow by broadcast)."""
+        from sayuri_tpu_torch.models.weights_io import load_checkpoint_for_inference
+
+        if self.mesh is None:
+            return load_checkpoint_for_inference(path, boardsize=self.env.n)[1]
+        cfg, net = (load_checkpoint_for_inference(path, boardsize=self.env.n)
+                    if self.rank == 0 else (None, None))
+        cfg = DI.broadcast_object_from_host0(cfg)
+        return net if self.rank == 0 else SayuriNet(cfg)
+
     def should_reload(self) -> bool:
-        """New weights appeared."""
-        return newest_weights(self.weights_dir) != self.current_weights
+        """New weights appeared (with a mesh: rank 0's answer, on every
+        rank)."""
+        new = newest_weights(self.weights_dir) != self.current_weights
+        if self.mesh is not None:
+            new = DI.broadcast_object_from_host0(new)
+        return new
 
     def play_round(self):
         """One batch of games: play, serialize, write chunks and SGFs.
         Returns the number of chunk files written."""
         t0 = time.monotonic()
-        states = self.randomizer.prepare(self.parallel_games,
-                                         self.seed * 1000003 + self.rounds,
-                                         device=self.device)
+        states = self.randomizer.prepare(
+            self.parallel_games, (self.seed * 1000003 + self.rounds) * self.world + self.rank,
+            device=self.device)
         final, records = self.actor.play_games(states, self.gen)
         # territory-rule lanes: label dead stones by an area-rule playout
         helper = self.actor.territory_playout(final, self.gen)

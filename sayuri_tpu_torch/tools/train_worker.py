@@ -12,16 +12,27 @@ the SWA v5 weights (``checkpoint/``, ``weights/``, ``swa/`` under
 StorePath) and appends ``step=N key=value`` lines to ``training.log`` and
 ``validation.log``. Paths in the JSON are taken relative to ``-w``. Runs on
 the card unless ``--device cpu``.
+
+Launched with a group (``torchrun --nproc-per-node N -m
+sayuri_tpu_torch.tools.train_worker ...``, or the SAYURI_COORDINATOR /
+SAYURI_NUM_PROCS / SAYURI_PROC_ID variables), each rank trains on its own
+card with its own loader (BatchSize / N samples a step, its own seed) and
+the steps are one data-parallel step on BatchSize samples
+(``train/pipeline.py``); rank 0 alone validates, logs and stores.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from pathlib import Path
 
+import torch
+
 from sayuri_tpu_torch.models.network import SayuriNet
 from sayuri_tpu_torch.models.weights_io import export_reference_weights
+from sayuri_tpu_torch.parallel import distributed as DI, mesh as M
 from sayuri_tpu_torch.train import dataset as DS
 from sayuri_tpu_torch.train.pipeline import Trainer
 from sayuri_tpu_torch.train.setting import load_setting
@@ -71,19 +82,33 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     setting = load_setting(args.setting)
-    loop = setting.loop
     base = Path(args.workspace)
 
     def rel(p):
         p = Path(p)
         return p if p.is_absolute() else base / p
 
+    joins = not torch.distributed.is_initialized()   # a caller's group stays joined
+    mesh = M.make_mesh() if DI.initialize_from_env(device=args.device) else None
+    try:
+        return _train(setting, rel, args, mesh)
+    finally:
+        if joins:
+            DI.shutdown()
+
+
+def _train(setting, rel, args, mesh):
+    loop = setting.loop
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    if setting.train.batch_size % world:
+        raise ValueError(f"BatchSize {setting.train.batch_size} does not split over "
+                         f"{world} ranks")
     store = rel(loop.store_path)
     ckpt_dir, weights_dir, swa_dir = store / "checkpoint", store / "weights", store / "swa"
     for d in (ckpt_dir, weights_dir, swa_dir):
         d.mkdir(parents=True, exist_ok=True)
 
-    trainer = Trainer(setting.net, setting.train, device=args.device)
+    trainer = Trainer(setting.net, setting.train, device=args.device, mesh=mesh)
     latest = Trainer.latest_checkpoint(str(ckpt_dir))
     if latest:
         trainer.load_checkpoint(latest)
@@ -103,30 +128,33 @@ def main(argv=None):
     loader = DS.ChunkLoader(
         chunks,
         nn_size=setting.net.boardsize,
-        batch_size=setting.train.batch_size,
+        batch_size=setting.train.batch_size // world,
         down_sample_rate=loop.down_sample_rate,
         policy_surprise_factor=loop.policy_surprise_factor,
         shuffle_capacity=max(256, loop.buffer_size // 64),
         virtual_buffsize=64,
-        seed=int(time.time()) % (1 << 31),
+        seed=(int(time.time()) + 7919 * rank) % (1 << 31),
     )
     max_steps = args.max_steps or loop.max_steps_per_running
     t0 = time.time()
     done = 0
     try:
-        with open(store / "training.log", "a") as lf:
+        with open(store / "training.log", "a") if rank == 0 else contextlib.nullcontext() as lf:
             for planes, targets in loader:
                 parts = trainer.train_batch(planes, targets)
                 done += 1
-                if done % max(1, loop.verbose_steps) == 0 or done == 1:
-                    rate = done * setting.train.batch_size / (time.time() - t0)
-                    print(f"step {trainer.steps}: loss={parts['loss']:.4f} "
-                          f"({rate:.0f} samples/s)")
-                lf.write(log_line(trainer.steps, parts))
+                if rank == 0:
+                    if done % max(1, loop.verbose_steps) == 0 or done == 1:
+                        rate = done * setting.train.batch_size / (time.time() - t0)
+                        print(f"step {trainer.steps}: loss={parts['loss']:.4f} "
+                              f"({rate:.0f} samples/s)")
+                    lf.write(log_line(trainer.steps, parts))
                 if done >= max_steps:
                     break
     finally:
         loader.close()
+    if rank != 0:
+        return trainer
 
     vdir = rel(loop.validation_dir) if loop.validation_dir else None
     if vdir and vdir.exists():

@@ -10,7 +10,11 @@ that sayuri_tpu_torch.selfplay.data writes).
 - shuffle buffer with insert-and-pop-random;
 - KataGo growing window over the newest chunks;
 - one worker thread and one seeded ``random.Random`` per loader, so a seed
-  gives the same batches.
+  gives the same batches;
+- each kept sample is parsed by the native codec (``sayuri_tpu_torch.native``)
+  when it builds, by ``Sample.parse`` when it does not. A departure from the
+  JAX loader, which parses in Python only: the batches are byte-identical
+  either way, and only the samples the sampler keeps are parsed.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import queue as queue_mod
 from pathlib import Path
 
 import numpy as np
+
+from sayuri_tpu_torch import native
 
 V2_DATA_LINES = 53
 NUM_BINARY_PLANES = 37
@@ -45,7 +51,7 @@ class Sample:
         self.lines = lines
         self.kld = float(lines[52])
 
-    def parse(self):
+    def _parse_scalars(self):
         ln = self.lines
         if int(ln[0]) != 2:
             raise ValueError(f"unsupported data version {ln[0]}")
@@ -53,21 +59,7 @@ class Sample:
         self.komi = float(ln[3])
         self.rule = float(ln[4])
         self.wave = float(ln[5])
-        hw = self.board_size * self.board_size
-
-        planes = np.zeros((NUM_BINARY_PLANES, hw), np.float32)
-        for p in range(NUM_BINARY_PLANES):
-            planes[p] = _unpack_plane(ln[6 + p], hw)
-        self.planes = planes
         self.to_move = int(ln[43])  # 1 = black
-        self.prob = np.asarray([float(x) for x in ln[44].split()], np.float32)
-        self.aux_prob = np.asarray(
-            [float(x) for x in ln[45].split()], np.float32
-        )
-        own = np.zeros(hw, np.float32)
-        for i, ch in enumerate(ln[46].strip()):
-            own[i] = 1.0 if ch == "1" else (-1.0 if ch == "3" else 0.0)
-        self.ownership = own
         self.result = int(ln[47])
         q4 = [float(x) for x in ln[48].split()]
         self.avg_q, self.short_avg_q, self.mid_avg_q, self.long_avg_q = q4
@@ -81,6 +73,44 @@ class Sample:
         ) = s4
         qs = [float(x) for x in ln[51].split()]
         self.q_stddev, self.score_stddev = qs
+        return self.board_size * self.board_size
+
+    def parse(self):
+        ln = self.lines
+        hw = self._parse_scalars()
+        planes = np.zeros((NUM_BINARY_PLANES, hw), np.float32)
+        for p in range(NUM_BINARY_PLANES):
+            planes[p] = _unpack_plane(ln[6 + p], hw)
+        self.planes = planes
+        self.prob = np.asarray([float(x) for x in ln[44].split()], np.float32)
+        self.aux_prob = np.asarray(
+            [float(x) for x in ln[45].split()], np.float32
+        )
+        own = np.zeros(hw, np.float32)
+        for i, ch in enumerate(ln[46].strip()):
+            own[i] = 1.0 if ch == "1" else (-1.0 if ch == "3" else 0.0)
+        self.ownership = own
+        return self
+
+    def parse_native(self):
+        """``parse`` with the planes, policies and ownership from the native
+        codec, at this sample's own board size: the same arrays (the codec
+        reads each number with strtod and casts it to float32, as ``float``
+        and numpy do). The few scalars are read in Python, as ``parse``
+        reads them. A line that ``parse`` (or ``wrap_sample`` after it)
+        rejects, the codec rejects too, with ValueError; it also rejects a
+        plane or ownership line of the wrong length and a policy line with
+        numbers left over, which the Python path pads or cuts."""
+        self._parse_scalars()
+        out = native.parse_positions("\n".join(self.lines), self.board_size, cap=1)
+        if out is None:
+            raise RuntimeError("the native chunk codec is not available")
+        if out["planes"].shape[0] != 1:
+            raise ValueError("codec parsed no position")
+        self.planes = out["planes"][0]
+        self.prob = out["prob"][0]
+        self.aux_prob = out["aux"][0]
+        self.ownership = out["own"][0]
         return self
 
     def apply_symmetry(self, symm):
@@ -274,7 +304,18 @@ class ChunkLoader:
         seed=0,
         loop=True,
         virtual_buffsize=None,
+        codec=None,
     ):
+        """`codec`: None parses natively when the codec builds, True
+        requires it (RuntimeError without it), False parses in Python.
+        ``native_parses`` / ``python_parses`` count the parsed samples."""
+        if codec is None:
+            codec = native.get_lib() is not None
+        elif codec and native.get_lib() is None:
+            raise RuntimeError("codec=True: the native chunk codec did not build")
+        self.codec = codec
+        self.native_parses = 0
+        self.python_parses = 0
         self.files = list(files)
         self.nn_size = nn_size
         self.batch_size = batch_size
@@ -328,7 +369,7 @@ class ChunkLoader:
             out = self.shuffle.insert_and_pop(s)
             if out is None:
                 continue
-            out.parse()
+            self._parse(out)
             out.apply_symmetry(self.rng.randrange(8))
             batch.append(wrap_sample(out, self.nn_size))
             if len(batch) >= self.batch_size:
@@ -336,12 +377,20 @@ class ChunkLoader:
                 batch = []
         # drain the shuffle buffer when not looping
         for s in self.shuffle.buf:
-            s.parse()
+            self._parse(s)
             s.apply_symmetry(self.rng.randrange(8))
             batch.append(wrap_sample(s, self.nn_size))
             if len(batch) >= self.batch_size:
                 self.queue.put(_collate(batch))
                 batch = []
+
+    def _parse(self, s):
+        if self.codec:
+            s.parse_native()
+            self.native_parses += 1
+        else:
+            s.parse()
+            self.python_parses += 1
 
     def __iter__(self):
         while True:

@@ -22,6 +22,15 @@ The update is the JAX package's optax chain, step for step:
 The checkpoint (``.ckpt``) is the port's own format: ``torch.save`` of the
 model, optimizer and SWA state, the counters, the configs and ``extra``,
 written to a ``.tmp`` and then renamed into place.
+
+With a mesh (``parallel.mesh.Mesh``), each rank steps on its share of the
+batch and the step equals the JAX package's step on the whole batch under
+its mesh: the gradients are averaged over the ranks (one all-reduce) before
+the norm clip, so the clip reads the global norm; the batch norms take
+their statistics over the global batch (``MaskedBatchNorm.sync``); the loss
+parts are the global means (one all-reduce); ``samples`` counts the global
+batch. The parameters start from rank 0's, and only rank 0 writes a
+checkpoint; every rank can load one.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from sayuri_tpu_torch.models.network import NetConfig, SayuriNet
+from sayuri_tpu_torch.models.network import MaskedBatchNorm, NetConfig, SayuriNet
 from sayuri_tpu_torch.train.loss import compute_loss
 
 
@@ -65,19 +74,28 @@ def lr_at(cfg: TrainConfig, updates: int) -> float:
 
 
 class Trainer:
-    """One net on one device. ``init_state`` (a state dict of the net's
-    parameters and statistics) replaces the seeded random start; SWA starts
-    as a copy of the first parameters either way."""
+    """One net on one device, or on each rank of a mesh (the mesh's device).
+    ``init_state`` (a state dict of the net's parameters and statistics)
+    replaces the seeded random start; SWA starts as a copy of the first
+    parameters either way."""
 
     def __init__(self, net_cfg: NetConfig, cfg: TrainConfig, seed: int = 0,
-                 device="cuda", init_state=None):
+                 device="cuda", init_state=None, mesh=None):
         self.net_cfg = net_cfg
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         net = SayuriNet(net_cfg).init_random(seed)
         if init_state is not None:
             net.load_state_dict(init_state)
         self.net = net.to(self.device).train()
+        if mesh is not None:
+            from sayuri_tpu_torch.parallel.mesh import replicate
+
+            replicate(mesh, self.net.state_dict())
+            for m in self.net.modules():
+                if isinstance(m, MaskedBatchNorm):
+                    m.sync = mesh
         self.params = list(self.net.parameters())
         self.swa_params = {k: p.detach().clone() for k, p in self.net.named_parameters()}
         self.swa_count = 0
@@ -103,24 +121,30 @@ class Trainer:
         return dict(zip(parts, torch.stack([v.detach() for v in parts.values()]).tolist()))
 
     def train_batch(self, planes, targets):
-        """One micro-batch (numpy or tensors): the loss, its gradients, and
-        an optimizer update when the macro-batch is full. Returns the loss
-        parts as floats; raises FloatingPointError on a non-finite loss."""
+        """One micro-batch (numpy or tensors; with a mesh, this rank's
+        rows): the loss, its gradients, and an optimizer update when the
+        macro-batch is full. Returns the loss parts as floats (with a mesh,
+        the global batch's); raises FloatingPointError on a non-finite loss."""
         cfg = self.cfg
         planes, targets = self._batch(planes, targets)
         outputs = self.net(planes)
         loss, parts = compute_loss(outputs, targets, planes[..., -1:], cfg.soft_loss_weight)
         grads = list(torch.autograd.grad(loss, self.params))
         with torch.no_grad():
+            if self.mesh is not None:
+                grads = self.mesh.all_reduce_mean_(grads)
             self._update(grads)
             self.steps += 1
-            self.samples += planes.shape[0]
+            self.samples += planes.shape[0] * (self.mesh.size if self.mesh else 1)
             if self.steps % cfg.swa_steps == 0:
                 w = 1.0 / (1.0 + min(self.swa_count, cfg.swa_max_count))
                 for k, p in self.net.named_parameters():
                     s = self.swa_params[k]
                     s.add_(w * (p - s))
                 self.swa_count = min(self.swa_count + 1, cfg.swa_max_count)
+        if self.mesh is not None:
+            parts = dict(zip(parts, self.mesh.all_reduce_mean_(
+                [torch.stack([v.detach() for v in parts.values()])])[0]))
         out = self._floats(parts)
         if not math.isfinite(out["loss"]):
             raise FloatingPointError(f"NaN/inf loss at step {self.steps}")
@@ -149,7 +173,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_batch(self, planes, targets):
-        """Loss parts of the net in inference mode (running statistics)."""
+        """Loss parts of the net in inference mode (running statistics), on
+        this process's batch alone: no collective, even with a mesh (the
+        train worker validates on rank 0 only)."""
         planes, targets = self._batch(planes, targets)
         self.net.eval()
         try:
@@ -185,6 +211,9 @@ class Trainer:
         return {k: b.detach().clone() for k, b in self.net.named_buffers()}
 
     def save_checkpoint(self, path: str, extra: dict | None = None):
+        """Write the checkpoint (on rank 0 only, with a mesh)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         blob = {
             "model": self.net.state_dict(),
             "optimizer": self.opt.state_dict(),

@@ -17,6 +17,11 @@ from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.models.encoder import encode
 from sayuri_tpu_torch.ops import analysis as TA
 from test_torch_board import jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOLDEN = Path(__file__).parent / "goldens" / "passdead_goldens.json"
 

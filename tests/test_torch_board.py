@@ -8,12 +8,18 @@ port GoState conversion and random legal JAX games.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sayuri_tpu.game import board as JB
 from sayuri_tpu.game.state import GoEnv as JEnv
 from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.game.state import GoEnv, GoState
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def jax_to_torch(states) -> GoState:

@@ -14,6 +14,11 @@ from sayuri_tpu.game.state import GoEnv as JEnv
 from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.ops import flood as FK
 from tests.test_torch_board import assert_states_equal, jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _varied(js):

@@ -47,11 +47,21 @@ def setup():
     return net, variables, tnet, jenv, js
 
 
+@pytest.fixture(scope="module")
+def jax_refs(setup):
+    """The JAX evaluator of every option on the same states, in one jit (one
+    trace and compile for the module instead of one an option)."""
+    net, variables, _, jenv, js = setup
+    fns = [JEV.make_eval_fn(jenv, net, variables, ladder_mode="off", **kw)
+           for kw in OPTIONS.values()]
+    return dict(zip(OPTIONS, jax.jit(lambda s: tuple(f(s) for f in fns))(js)))
+
+
 @pytest.mark.parametrize("name", list(OPTIONS))
-def test_netevals_match_jax(setup, name):
-    net, variables, tnet, jenv, js = setup
+def test_netevals_match_jax(setup, jax_refs, name):
+    _, _, tnet, _, js = setup
     kw = OPTIONS[name]
-    ref = jax.jit(JEV.make_eval_fn(jenv, net, variables, ladder_mode="off", **kw))(js)
+    ref = jax_refs[name]
     got = make_eval_fn(GoEnv(n=N), tnet, ladder_mode="off", **kw)(jax_to_torch(js))
     for k in ref._fields:
         np.testing.assert_allclose(np.asarray(getattr(ref, k)), getattr(got, k).numpy(),

@@ -15,6 +15,11 @@ from sayuri_tpu.game import board as JB
 from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.ops import flood as FK
 from tests.test_torch_board import random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _jax_over_lead(fn, *arrays):

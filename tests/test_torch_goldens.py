@@ -15,6 +15,11 @@ from sayuri_tpu_torch.game.ladder import ladder_planes_batch
 from sayuri_tpu_torch.game.state import GoEnv, GoState
 from sayuri_tpu_torch.models.encoder import encode
 from sayuri_tpu_torch.ops.analysis import board_analysis
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
 

@@ -9,7 +9,9 @@ loop's own behaviour, on the CPU:
   line into the same Agent and loop arguments as the JAX package's
   run_gtp builds (an Agent of each package compared attribute by
   attribute);
-- `--patterns` raises;
+- `--patterns` and `--scoring-rule` raise; the flags that no mode of the
+  JAX package acts on (`--threads`, `--no-fp16`, ...) are ignored, and
+  `quit` answers as in the JAX run_gtp;
 - an exception raised in the kernel wrappers (sayuri_tpu_torch/ops) or a
   CUDA error inside a handler is not turned into a "?" answer, while a bad
   vertex still is;
@@ -141,6 +143,39 @@ def test_patterns_raise():
         CLI.main(["--mode", "gtp", "--patterns", "x.txt"], device="cpu")
     with pytest.raises(ValueError, match="--gammas-policy-factor"):
         Options().parse_args(["--gammas-policy-factor", "0.5"]).check_gtp_flags()
+
+
+NOOP_FLAGS = [["--threads", "4"], ["--gpu", "0"], ["--gpu-waittime", "2"], ["--no-fp16"],
+              ["--no-winograd"], ["--virtual-loss-count", "3"], ["--early-symm-cache"],
+              ["--fixed-nn-boardsize", "9"], ["--quiet"], ["--analysis-verbose"],
+              ["--batch-size", "8"], ["--always-completed-q-policy"]]
+
+
+@pytest.mark.parametrize("flag", NOOP_FLAGS, ids=lambda f: f[0][2:])
+def test_noop_flags_answer_as_jax(monkeypatch, flag):
+    """A flag that no mode of the JAX package acts on: the port's gtp mode
+    ignores it and answers `quit` as the JAX run_gtp does; the benchmark
+    mode accepts it too."""
+    from sayuri_tpu import __main__ as JCLI
+    from sayuri_tpu.gtp.loop import GtpLoop as JLoop
+
+    argv = ["--boardsize", "9"] + flag
+    jout = io.StringIO()
+    monkeypatch.setattr(JLoop.run, "__defaults__", (io.StringIO("quit\n"), jout))
+    JCLI.run_gtp(JOptions().parse_args(argv))
+    assert jout.getvalue() == "= \n\n"
+    assert _run_gtp(monkeypatch, argv, ["quit"]) == jout.getvalue()
+    Options().parse_args(["--mode", "benchmark"] + flag).check_benchmark_flags()
+    with pytest.raises(ValueError, match=flag[0]):
+        Options().parse_args(["--mode", "selfplay"] + flag).check_selfplay_flags()
+
+
+def test_scoring_rule_is_refused():
+    """Both packages parse --scoring-rule and neither reads it: the port
+    refuses it in every mode."""
+    for mode in ("gtp", "benchmark", "selfplay"):
+        with pytest.raises(ValueError, match="--scoring-rule"):
+            CLI.main(["--mode", mode, "--scoring-rule", "territory"], device="cpu")
 
 
 def test_kernel_errors_pass_through(monkeypatch):

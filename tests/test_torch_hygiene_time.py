@@ -20,6 +20,11 @@ from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.gtp import time_control as TT
 from sayuri_tpu_torch.mcts import hygiene as TH
 from test_torch_board import random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 9
 

@@ -1,7 +1,16 @@
 """The port runs where JAX is absent: importing sayuri_tpu_torch and each
 module of the slice pulls in neither jax, flax nor the JAX package, and
-chip_smoke.py refuses to run (non-zero, no result line) without a card."""
+chip_smoke.py refuses to run (non-zero, no result line) without a card.
 
+All modules are checked in one fresh interpreter. A ``sys.meta_path``
+finder there refuses, and records, every attempt to import ``jax``,
+``jaxlib``, ``flax`` or ``sayuri_tpu`` while a module is imported; since a
+refused package never enters ``sys.modules``, a later module that imports
+it is caught too. Before each module, every ``sayuri_tpu_torch`` module is
+dropped from ``sys.modules``, so each one runs its whole import chain as
+in an interpreter of its own (only torch and numpy stay loaded)."""
+
+import json
 import os
 import subprocess
 import sys
@@ -54,15 +63,41 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.tools",
     "sayuri_tpu_torch.tools.train_worker",
     "sayuri_tpu_torch.tools.rl_loop",
+    "sayuri_tpu_torch.native",
+    "sayuri_tpu_torch.parallel",
+    "sayuri_tpu_torch.parallel.mesh",
+    "sayuri_tpu_torch.parallel.distributed",
+    "sayuri_tpu_torch.parallel.dryrun",
 ]
 
 CHECK = """
-import importlib, sys
-importlib.import_module({mod!r})
-bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sayuri_tpu'))
-print('LEAKED', bad)
-sys.exit(1 if bad else 0)
+import importlib, importlib.abc, json, sys, traceback
+import numpy, torch
+
+BANNED = ('jax', 'jaxlib', 'flax', 'sayuri_tpu')
+attempts = []
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BANNED:
+            attempts.append(name)
+            raise ImportError('refused: ' + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+out = {}
+for mod in json.loads(sys.argv[1]):
+    for m in [m for m in sys.modules if m.split('.')[0] == 'sayuri_tpu_torch']:
+        del sys.modules[m]
+    attempts.clear()
+    err = None
+    try:
+        importlib.import_module(mod)
+    except BaseException:
+        err = traceback.format_exc()
+    leaked = sorted(m for m in sys.modules if m.split('.')[0] in BANNED)
+    out[mod] = {'attempts': sorted(set(attempts)), 'leaked': leaked, 'error': err}
+print('RESULT ' + json.dumps(out))
 """
 
 
@@ -72,12 +107,20 @@ def _env():
     return env
 
 
-@pytest.mark.parametrize("mod", SLICE_MODULES)
-def test_module_imports_without_jax(mod):
-    res = subprocess.run([sys.executable, "-c", CHECK.format(mod=mod)],
+@pytest.fixture(scope="module")
+def import_results():
+    res = subprocess.run([sys.executable, "-c", CHECK, json.dumps(SLICE_MODULES)],
                          capture_output=True, text=True, env=_env(), cwd=ROOT,
-                         timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
+                         timeout=300)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert res.returncode == 0 and lines, res.stdout + res.stderr
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("mod", SLICE_MODULES)
+def test_module_imports_without_jax(mod, import_results):
+    r = import_results[mod]
+    assert r["error"] is None and not r["attempts"] and not r["leaked"], r
 
 
 def test_chip_smoke_fails_without_a_card():

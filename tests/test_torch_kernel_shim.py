@@ -30,6 +30,11 @@ from sayuri_tpu_torch.game.positions import random_positions, spiral, stress_pos
 from sayuri_tpu_torch.ops import analysis as TA
 from sayuri_tpu_torch.ops import host_shim as H
 from sayuri_tpu_torch.ops import ladder_kernel as LK
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,11 @@ from sayuri_tpu_torch.game import ladder as TL
 from sayuri_tpu_torch.ops import analysis as TA
 from sayuri_tpu_torch.ops import ladder_kernel as LK
 from test_torch_board import jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (n, batch, moves, board size or None for n)
 CASES = {"9x9": (9, 6, 40, None), "19x19": (19, 3, 150, None),

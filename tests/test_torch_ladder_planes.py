@@ -14,6 +14,11 @@ from sayuri_tpu.game import ladder as JL
 from sayuri_tpu_torch.game import ladder as TL
 from test_ladder_exact import board_from_diagram, oracle_planes
 from test_torch_board import jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @jax.jit

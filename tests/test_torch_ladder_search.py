@@ -6,6 +6,7 @@ best moves."""
 
 import jax
 import numpy as np
+import pytest
 
 from sayuri_tpu.mcts.core import MCTS as JMCTS, SearchConfig as JConfig
 from sayuri_tpu.models import evaluator as JEV
@@ -15,6 +16,11 @@ from sayuri_tpu_torch.models.evaluator import make_eval_fn
 from test_torch_board import jax_to_torch, random_jax_states
 from test_torch_ladder_planes import check_evaluator_with_ladders
 from test_torch_network import seeded_variables
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PLAYOUTS = 16
 

@@ -7,6 +7,7 @@ exact."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sayuri_tpu.models import encoder as JE
@@ -21,6 +22,11 @@ from sayuri_tpu_torch.models.weights_io import from_flax_variables
 from sayuri_tpu_torch.ops import analysis as TA
 from sayuri_tpu_torch.game.state import GoEnv
 from test_torch_board import jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 1e-5
 STACK = ("ResidualBlock", "ResidualBlock-SE")

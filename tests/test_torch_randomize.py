@@ -20,6 +20,11 @@ from sayuri_tpu_torch.models.evaluator import make_dummy_eval_fn
 from sayuri_tpu_torch.selfplay import randomize as R
 from tests.test_mcts import make_dummy_eval as jax_uniform_eval
 from tests.test_torch_board import assert_states_equal
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 QUERIES = [
     ["bkp:9:7.5:0.8", "bkp:7:6.5:0.2", "bhp:9:4:0.3", "srs:area:territory"],

@@ -21,6 +21,11 @@ from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
 from sayuri_tpu_torch.models.evaluator import make_dummy_eval_fn
 from tests.test_seki import board_from_diagram
 from tests.test_torch_board import jax_to_torch, random_jax_states
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MASKS = ("capture", "atari", "escape", "self_atari", "simple_eye")
 

@@ -5,6 +5,7 @@ off, symmetry "random". Root visit counts and best moves are equal."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from sayuri_tpu.mcts.core import MCTS as JMCTS, SearchConfig as JConfig
@@ -14,6 +15,11 @@ from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
 from sayuri_tpu_torch.models.evaluator import make_eval_fn
 from test_torch_board import jax_to_torch, random_jax_states
 from test_torch_network import seeded_variables
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PLAYOUTS = 16
 

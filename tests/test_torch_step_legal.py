@@ -22,6 +22,11 @@ from sayuri_tpu_torch import bench as TBench
 from sayuri_tpu_torch.game.state import GoEnv
 from sayuri_tpu_torch.ops import analysis as TA
 from tests.test_torch_board import assert_states_equal, jax_to_torch
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 STEP_KEYS = ("new_stones", "n_captured", "new_ko", "new_hash", "legal")
 

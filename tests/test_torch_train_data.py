@@ -111,13 +111,11 @@ def test_select_window_chunks_matches_jax(chunks):
         [JD.compute_window_size(n) for n in (0, 1, 5000, 250000)]
 
 
-@pytest.mark.parametrize("loop", [False, True], ids=["one_pass", "looping"])
-def test_chunk_loader_batches_equal_byte_for_byte(chunks, loop):
-    _, files = chunks
+def _loaders_agree(files, loop, codec=None):
     kw = dict(nn_size=7, batch_size=4, down_sample_rate=2 if loop else 1,
               policy_surprise_factor=0.5, shuffle_capacity=8, virtual_buffsize=32, loop=loop,
               seed=11)
-    jl, tl = JD.ChunkLoader(files, **kw), TD.ChunkLoader(files, **kw)
+    jl, tl = JD.ChunkLoader(files, **kw), TD.ChunkLoader(files, codec=codec, **kw)
     try:
         n = 0
         for (wp, wt), (gp, gt) in zip(jl, tl):
@@ -131,6 +129,21 @@ def test_chunk_loader_batches_equal_byte_for_byte(chunks, loop):
         jl.close()
         tl.close()
     assert n >= 3 and not tl.thread.is_alive()
+    return tl
+
+
+@pytest.mark.parametrize("loop", [False, True], ids=["one_pass", "looping"])
+def test_chunk_loader_batches_equal_byte_for_byte(chunks, loop):
+    """The port's default loader parses every kept sample with the native
+    codec (g++ is there), and its batches equal the JAX loader's."""
+    tl = _loaders_agree(chunks[1], loop)
+    assert tl.codec and tl.native_parses >= 12 and tl.python_parses == 0
+
+
+@pytest.mark.parametrize("loop", [False, True], ids=["one_pass", "looping"])
+def test_chunk_loader_python_parse_equals_jax(chunks, loop):
+    tl = _loaders_agree(chunks[1], loop, codec=False)
+    assert not tl.codec and tl.native_parses == 0 and tl.python_parses >= 12
 
 
 def test_chunk_loader_raises_a_worker_error(tmp_path):

@@ -35,6 +35,11 @@ from sayuri_tpu_torch.train import pipeline as TP
 from sayuri_tpu_torch.train.pipeline import TrainConfig, Trainer
 from torch_train_util import (assert_parts_close, assert_tensors_close, batch, net_configs,
                               port_params, port_state, port_stats, to_numpy)
+from torch_draws import one_torch_thread  # noqa: F401 (fixture)
+
+# the module's CPU work on one torch thread: the suite runs several workers
+# on the same cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PART_TOL = 1e-5
 STATE_TOL = 1e-5
