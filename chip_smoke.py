@@ -10,7 +10,8 @@ no result line):
 2. build: compile csrc/analysis.cu, csrc/ladder.cu and csrc/flood.cu with
    nvcc for sm_90a (first use, the three nvcc processes at once); ptxas
    resources printed.
-3. kernel parity: random legal 19x19 positions (B=256, numpy seed), the
+3. kernel parity: random legal 19x19 positions (B=256, numpy seed, played
+   by the env on the card), the
    pass-dead golden boards and the stress boards of game/positions.py
    (one-colour spiral, checkerboard, full and empty boards, the capture of
    a whole spiral, smaller games in the buffer; 19x19 and 9x9 buffers),
@@ -73,10 +74,10 @@ no result line):
 13. self-play: a v5 weight file of the b6c96 net (seeded random weights)
     written by the port's exporter into a temporary --weights-dir, then
     the CLI, ``python -m sayuri_tpu_torch --mode selfplay --config
-    configs/selfplay-gumbel-p150.txt`` with the playouts cut to 24/8 (all
-    else the config's: 64 parallel games, Gumbel, playout caps, the bkp:9 /
-    bkp:7 and srs:area:territory queries, the NN cache), one round of 64
-    games: every chunk holds 53 lines a position starting "2", "0",
+    configs/selfplay-gumbel-p150.txt`` with the playouts cut to 12/4 and
+    the parallel games from 64 to 32 (all else the config's: Gumbel,
+    playout caps, the bkp:9 / bkp:7 and srs:area:territory queries, the NN
+    cache), one round of 32 games: every chunk holds 53 lines a position starting "2", "0",
     bsize; the chunks hold as many positions as there were kept records;
     every SGF's moves replay legally (superko included) through the plain
     CPU env; net_queries is written; territory lanes ran the helper
@@ -85,7 +86,7 @@ no result line):
     half of its launches there (the last power-of-two launch number), so
     the boards are mid- to late-game: each is held against its plain twin
     there and timed. Then the 19x19 reading: ``bench.bench_selfplay``
-    (b6c96 bf16, the config's 150/50 playouts, B=256, 8 moves after a
+    (b6c96 bf16, the config's 150/50 playouts, B=256, 4 moves after a
     one-move warm-up), moves/s and kept positions/s, with the NN cache of
     512 sets, then without it.
 
@@ -99,7 +100,7 @@ no result line):
     parsed), sayuri-raw_nn avg, final_score, final_status_list dead,
     printsgf; every answer "=", the SGF replayed legally on the CPU, each
     genmove's seconds and the B=1 playouts/s printed. Then two 9x9 games
-    of alternating genmoves at 16 playouts (up to 100 moves or two
+    of alternating genmoves at 8 playouts (up to 80 moves or two
     passes): the area rule with --first-pass-bonus --friendly-pass
     --capture-all-dead --symm-pruning, and the territory rule with the
     territory helper playout before final_score; final_score,
@@ -118,19 +119,19 @@ no result line):
     relative, parameters and running statistics after the step within 1e-4;
     (b) ``python -m sayuri_tpu_torch.tools.train_worker`` on a setting.json
     it writes (b6c96, MaxBoardSize 19, BatchSize 256, TrainDirectory =
-    phase 13's tdata) with --max-steps 64: 64 finite training.log lines, the
+    phase 13's tdata) with --max-steps 32: 32 finite training.log lines, the
     checkpoint, v5 and SWA v5 files, the v5 file read back through
     load_checkpoint_for_inference gives the trainer's eval-mode heads within
-    1e-4 on the card, a second invocation resumes at step 64; (c) ``bench
+    1e-4 on the card, a second invocation resumes at step 32; (c) ``bench
     train`` on the same chunks: ms a step and samples/s of the step alone,
     samples/s through the loader and the share of the wall time the step
     loop waits on it; (d) ``python -m sayuri_tpu_torch.tools.rl_loop`` on the
-    card, two 7x7 rounds of 8 games at 16/8 playouts and 8 steps of batch
+    card, two 7x7 rounds of 8 games at 8/4 playouts and 8 steps of batch
     64: round 2's actor loads round 1's gated .ckpt, the self-play kernels
     launch, the plain functions raise on a CUDA tensor meanwhile, and every
     kernel is held against its plain twin at each shape the loop gave it
     (the kernels line carries `rl_launches` and `rl_by_shape`); (e) the
-    loader alone (``bench.bench_loader``, 8 batches of 256) with the native
+    loader alone (``bench.bench_loader``, 4 batches of 256) with the native
     chunk codec and with the Python parse, alternated (on, off, off, on),
     on phase 13's chunks and on seeded 19x19 chunks that the port's native
     writer produces here. In (a) and (e) the loader must have parsed every
@@ -144,14 +145,14 @@ no result line):
     9x9 boards in the 19x19 buffer: every head within 1e-4 of the CPU's
     (phase 7's bound), the max error of each printed. (b) bench_playouts on
     b6c96-mix at B=256 x 96 playouts (bf16, root ladder planes), one
-    warm-up and three timed searches, alternated with the same bench on
-    b6c96 (mix, b6c96, b6c96, mix): around each mix run the counters show
+    warm-up and three timed searches, then the same bench on b6c96 (mix,
+    b6c96): around the mix run the counters show
     step_and_analyze once a simulation and the ladder kernels once a search,
     root visits = playouts + 1 and legal best moves; both rates and their
     ratio. (c) The port's exporter writes the net as a v5 file, read back
     through load_checkpoint_for_inference: heads within the same bound of
     the source net on the card; the GTP CLI with configs/gtp-p400.txt at
-    100 playouts on that file answers one 19x19 genmove with "=". (d) One
+    50 playouts on that file answers one 19x19 genmove with "=". (d) One
     b6c96-mix SGD step at batch 256 on phase 13's chunks, card vs CPU as in
     15(a), then ``bench train --net b6c96-mix``: ms a step of the step alone. (e)
     ``bench profile --net b6c96-mix``: the device ms of the depthwise conv
@@ -174,12 +175,32 @@ no result line):
     the run id at world size 1, the chunks parse (the kernels line carries
     `group_launches` and `group_by_shape`).
 
+18. gammas: (a) ``genpatterns`` through the port's GTP loop on four of
+    phase 13's SGFs (the games replayed on the card): the gamma count and
+    the seconds. (b) On phase 3's 256 midgame 19x19 positions, the device
+    gammas (pattern/gammas_device.py) on the card against the CPU: spatial
+    keys and table lookups equal, the gammas policy (seeded ownership)
+    within 1e-6, the gammas-mixed f32 root NetEvals of phase 13's b6c96
+    weights within 1e-4; the gammas policy timed at B=256 and B=1. (c) The
+    gtp-p400 session through the CLI with ``--patterns FILE
+    --gammas-policy-factor 0.5`` on phase 13's v5 file (bf16): three
+    genmoves, gogui-gammas_heatmap and gogui-gammas_rating, the factor set
+    to 0 by sayuri-setoption, one more genmove; every answer "=", seconds a
+    genmove beside phase 14's, the kernels' launches a simulation with and
+    without the gammas, and all CUDA kernels a simulation (torch.profiler,
+    a 16-playout search each way); every kernel held against its plain
+    twin at each shape the session gave it (`gammas_launches`,
+    `gammas_by_shape`). (d) ``python -m sayuri_tpu_torch.tools.ab_match``
+    on the card: 8 7x7 games at 8 playouts, weightless, Gumbel with a draw
+    a selection against one draw a search; its JSON line.
+
 Launch counters are set to 0 right before each main path (phases 5, 8-11,
-13, 14, 15(d), each b6c96-mix run of 16(b), 17(a)) and read right after
-it. The second-to-last line is the kernels JSON
+13, 14, 15(d), the b6c96-mix run of 16(b), 17(a), 18(c)) and read right
+after it. The second-to-last line is the kernels JSON
 (all eight kernels: launches on their path, max abs error against the plain
 version, kernel and plain ms with the plain version's device, the bound,
-library call; the self-play, GTP, RL-loop and group launches and shapes);
+library call; the self-play, GTP, RL-loop, group and gammas launches and
+shapes);
 the last line is {"ok": true, "device": {...}}.
 There is no CPU fallback: without a CUDA device the script fails.
 """
@@ -211,9 +232,10 @@ OPS_PER_CELL = 8
 # rows on the board
 PLY_BOARDS = 3
 # phase 13: the CLI self-play run (playouts cut so a whole 9x9 game batch
-# fits the smoke) and the 19x19 reading
-SP_PLAYOUTS, SP_FAST_PLAYOUTS, SP_GAMES = 24, 8, 64
-SP_BENCH_BATCH, SP_BENCH_MOVES = 256, 8
+# fits the smoke, games from the config's 64 to leave phase 18 room) and
+# the 19x19 reading
+SP_PLAYOUTS, SP_FAST_PLAYOUTS, SP_GAMES = 12, 4, 32
+SP_BENCH_BATCH, SP_BENCH_MOVES = 256, 4
 # the config's cache, then none (two runs, to leave the GTP phase room in
 # the time limit)
 SP_BENCH_CACHE_SETS = (512, 0)
@@ -538,7 +560,7 @@ def check_shapes(torch, card, spy, tag, where):
 GTP_CONFIG = ROOT / "configs/gtp-p400.txt"
 GTP_GENMOVES = 4
 GTP_ANALYZE_S = 2.0          # the analyze stream runs this long before the next line
-ENDGAME_N, ENDGAME_PLAYOUTS, ENDGAME_MOVES = 9, 16, 100
+ENDGAME_N, ENDGAME_PLAYOUTS, ENDGAME_MOVES = 9, 8, 80
 BENCH_QUERY = "bg:16:32"
 # the plain functions that must not run on the card's GTP path
 GTP_GUARDED = {"ops.analysis": ("board_analysis_plain", "step_and_analyze_plain",
@@ -629,7 +651,8 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
     final_status_list dead, gogui-seki and printsgf answer "=", the SGFs
     replay legally. (c) Every kernel held against its plain twin at each
     shape (a) and (b) gave it. (d) `--mode benchmark --benchmark-query
-    BENCH_QUERY`. Returns (launches of (a) + (b), shapes)."""
+    BENCH_QUERY`. Returns (launches of (a) + (b), shapes, the median
+    seconds of (a)'s genmoves)."""
     import contextlib
     import io
     import os
@@ -790,16 +813,16 @@ def run_gtp_phase(torch, dev, card, wfile, work, reset_counts, counts, need):
     if not re.match(r"batch 16 x 32 playouts: [0-9.]+ p/s", line) or not rates[0] > 0:
         raise RuntimeError(f"benchmark mode printed {line!r}")
     print(f"benchmark mode: {line}  [{card}]")
-    return launches, shapes
+    return launches, shapes, sorted(secs)[len(secs) // 2]
 
 
 # phase 15: the trainer on phase 13's chunks, the train worker, bench
 # train, the RL loop
 TRAIN_TOL = 1e-4       # card step vs CPU step, f32 with TF32 off: sums in another order
 TRAIN_SEED = 5
-WORKER_STEPS = 64
+WORKER_STEPS = 32
 RL_ARGS = ["--rounds", "2", "--boardsize", "7", "--games-per-round", "8",
-           "--parallel-games", "8", "--playouts", "16", "--fast-playouts", "8",
+           "--parallel-games", "8", "--playouts", "8", "--fast-playouts", "4",
            "--steps-per-round", "8", "--batch-size", "64"]
 
 
@@ -856,10 +879,10 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
     running statistics after the step within TRAIN_TOL absolute. (b)
     ``python -m sayuri_tpu_torch.tools.train_worker`` on a setting.json of
     b6c96 at 19x19, batch 256, TrainDirectory = phase 13's tdata,
-    ``--max-steps 64``: 64 finite training.log lines; the checkpoint, v5 and
+    ``--max-steps WORKER_STEPS``: WORKER_STEPS finite training.log lines; the checkpoint, v5 and
     SWA v5 files; the v5 file read back through load_checkpoint_for_inference
     gives the trainer's eval-mode heads within TRAIN_TOL on the card; a
-    second invocation resumes at step 64. (c) ``bench train`` on the same
+    second invocation resumes at step WORKER_STEPS. (c) ``bench train`` on the same
     chunks: the step alone, the loader alone, and the steps fed by the
     loader at the default and at a short thread switch interval. (d) ``python -m
     sayuri_tpu_torch.tools.rl_loop`` with RL_ARGS on the card: round 2's
@@ -1008,7 +1031,7 @@ def run_train_phase(torch, dev, card, out_dir, work, reset_counts, counts, need)
 
 
 # phase 15(e): the loader alone, codec on and off
-CODEC_BATCHES = 8
+CODEC_BATCHES = 4
 CODEC_FILES, CODEC_POSITIONS = 8, 256
 
 
@@ -1047,7 +1070,7 @@ def write_seeded_chunks(out, n, seed=3):
 
 
 # phase 16: the block families, through the b6c96-mix net
-MIX_GTP_PLAYOUTS = 100
+MIX_GTP_PLAYOUTS = 50
 MIX = "b6c96-mix"
 MIX_SEED = 13
 MIX_BOARDS = (19, 13, 9)       # board sizes of 16(a)'s batch in the 19x19 buffer
@@ -1072,7 +1095,7 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
     off, on the card and on the CPU over random planes of 19x19, 13x13 and
     9x9 boards in the 19x19 buffer: every head within EVAL_ATOL. (b)
     bench_playouts on b6c96-mix at B=256 x 96 playouts (bf16, root ladder
-    planes), alternated with b6c96 (mix, b6c96, b6c96, mix): launch
+    planes), then the same bench on b6c96: launch
     counters read around each mix run (step_and_analyze once a simulation,
     the ladder kernels once a search), root visits = playouts + 1, legal
     best moves; both rates and their ratio. (c) The port's exporter writes
@@ -1117,9 +1140,9 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
     check_heads(got, want, f"{MIX} f32 card vs CPU ({MIX_BATCH} boards of {MIX_BOARDS} in the "
                            f"19x19 buffer)")
 
-    # (b) the search, alternated with b6c96
+    # (b) the search, then b6c96's
     rates = {MIX: [], "b6c96": []}
-    for which in (MIX, "b6c96", "b6c96", MIX):
+    for which in (MIX, "b6c96"):
         reset_counts()
         res = bench.bench_playouts(SLICE_BATCH, SLICE_PLAYOUTS, device=dev, net=which)
         torch.cuda.synchronize()
@@ -1131,7 +1154,7 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
               f"(B={SLICE_BATCH} x {SLICE_PLAYOUTS}, bf16, {res['searches'] - 1} timed "
               f"searches in {res['seconds']:.3f} s)  [{card}]")
     mean = {k: sum(v) / len(v) for k, v in rates.items()}
-    print(f"playouts/s {MIX} / b6c96, alternated in this call: {mean[MIX]:.1f} / "
+    print(f"playouts/s {MIX} / b6c96 in this call: {mean[MIX]:.1f} / "
           f"{mean['b6c96']:.1f} = {mean[MIX] / mean['b6c96']:.4f}  [{card}]")
 
     # (c) the v5 file, and the GTP CLI on it
@@ -1188,7 +1211,7 @@ GROUP_STEPS = 10          # timed steps a block (blocks: none, group, group, non
 GROUP_PROFILED_STEPS = 3
 GROUP_MICRO_CALLS = 620   # the group step's 62 all-reduces, ten times
 GROUP_GAMES = 8
-GROUP_PLAYOUTS, GROUP_FAST_PLAYOUTS = 4, 2   # (c): phase 13's config, fewer playouts
+GROUP_PLAYOUTS, GROUP_FAST_PLAYOUTS = 2, 1   # (c): phase 13's config, fewer playouts
 GROUP_KERNELS = ("step_and_analyze", "board_analysis", "ladder_prep", "run_greedy",
                  "run_chases", "flood", "chain_labels")
 
@@ -1483,6 +1506,295 @@ def run_group_phase(torch, card, out_dir, work):
     return res["launches"], res["shapes"]
 
 
+# phase 18: the pattern gammas (genpatterns, the device gammas at 19x19,
+# the GTP session with --patterns) and the A/B harness
+GAMMAS_SGFS = 4               # phase 13's SGFs that genpatterns reads
+GAMMAS_FACTOR = 0.5
+GAMMAS_GENMOVES = 3           # with gammas, then one more at factor 0
+GAMMAS_TOL = 1e-6             # the gammas policy, f32 card vs CPU
+GAMMAS_PROFILE_PLAYOUTS = 16  # each profiled search of 18(c), gammas on and off
+AB_GAMES, AB_BOARD, AB_PLAYOUTS = 8, 7, 8
+
+
+GAMMAS_RANGE = "gammas.mix"
+
+
+def profile_gammas(torch, fn):
+    """fn() under torch.profiler with gammas_device.apply_to_evals in a
+    GAMMAS_RANGE range: (CUDA kernels launched, the card's busy ms, the
+    kernels that start inside the range, their device ms, {search stage
+    (`mcts.*` range): kernels}); None when the profiler sees no device."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sayuri_tpu_torch import bench
+    from sayuri_tpu_torch.pattern import gammas_device as GD
+
+    apply = GD.apply_to_evals
+
+    def ranged(*args, **kw):
+        with record_function(GAMMAS_RANGE):
+            return apply(*args, **kw)
+
+    GD.apply_to_evals = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        GD.apply_to_evals = apply
+    events = prof.events()
+    kernels, busy_us = bench._device_kernels(events, skip=("mcts.", GAMMAS_RANGE))
+    if not kernels:
+        return None
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ranges(pick):
+        rs = sorted((e for e in events if e.device_type == cuda and pick(e.name)),
+                    key=lambda e: e.time_range.start)
+        return rs, [r.time_range.start for r in rs]
+
+    def holder(rs, starts, k):
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        return rs[i] if i >= 0 and k.time_range.start < rs[i].time_range.end else None
+
+    mix, stages = ranges(lambda name: name == GAMMAS_RANGE), ranges(
+        lambda name: name.startswith("mcts."))
+    inside, per_stage = [], {}
+    for k in kernels:
+        if holder(*mix, k) is not None:
+            inside.append(k.time_range.elapsed_us())
+        st = holder(*stages, k)
+        name = st.name if st is not None else "outside"
+        per_stage[name] = per_stage.get(name, 0) + 1
+    return len(kernels), busy_us / 1e3, len(inside), sum(inside) / 1e3, per_stage
+
+
+def run_gammas_phase(torch, np, dev, card, s19, ladders19, wfile, sgf_dir, work, reset_counts,
+                     counts, need, gtp_genmove_s):
+    """Phase 18. (a) ``genpatterns`` through the port's GTP loop on
+    GAMMAS_SGFS of phase 13's SGFs: the gamma count and the seconds. (b) On
+    phase 3's 256 midgame 19x19 positions: spatial keys and table lookups
+    on the card equal the CPU's, the gammas policy (seeded ownership)
+    within GAMMAS_TOL, and the gammas-mixed f32 root NetEvals of phase 13's
+    b6c96 weights (random symmetry, the positions' root ladder planes)
+    within EVAL_ATOL; the gammas policy timed at B=256 and B=1. (c) The
+    gtp-p400 session through the CLI with --patterns FILE
+    --gammas-policy-factor GAMMAS_FACTOR and phase 13's v5 file (bf16):
+    GAMMAS_GENMOVES genmoves, both gogui gammas commands, the factor set to
+    0, one more genmove; every answer "=", seconds a genmove beside phase
+    14's; the kernels' launches a simulation with and without the gammas;
+    a search of GAMMAS_PROFILE_PLAYOUTS playouts from a new tree each way,
+    timed, then under torch.profiler: all CUDA kernels a simulation, the
+    card's busy ms and the gammas mix's kernels and device ms (a range
+    around gammas_device.apply_to_evals); every kernel held
+    against its plain twin at each shape the session gave it. (d)
+    ``tools.ab_match`` on the card: AB_GAMES 7x7 games at AB_PLAYOUTS
+    playouts, weightless (the JAX tool's default), Gumbel, one draw a
+    search against a draw a selection. Returns (launches of (c), shapes of
+    (c))."""
+    import contextlib
+    import copy
+    import io
+    import shutil
+
+    from sayuri_tpu_torch import __main__ as CLI
+    from sayuri_tpu_torch.config import Options
+    from sayuri_tpu_torch.game.state import GoEnv
+    from sayuri_tpu_torch.gtp.loop import GtpLoop
+    from sayuri_tpu_torch.models.evaluator import make_eval_fn
+    from sayuri_tpu_torch.models.weights_io import load_checkpoint_for_inference
+    from sayuri_tpu_torch.ops import analysis as TA
+    from sayuri_tpu_torch.ops import flood as FK
+    from sayuri_tpu_torch.ops import ladder_kernel as LK
+    from sayuri_tpu_torch.pattern import gammas_device as GD
+    from sayuri_tpu_torch.pattern.gammas import GammasDict
+    from sayuri_tpu_torch.tools import ab_match
+
+    t_phase = time.monotonic()
+
+    # (a) genpatterns on the card
+    pat_sgf = work / "pattern-sgf"
+    pat_sgf.mkdir()
+    for f in sorted(sgf_dir.glob("*.sgf"))[:GAMMAS_SGFS]:
+        shutil.copy(f, pat_sgf / f.name)
+    pfile = work / "patterns.json"
+    t0 = time.monotonic()
+    ok, body = GtpLoop(boardsize=19, device=dev).execute(f"genpatterns {pat_sgf} {pfile}")
+    gen_s = time.monotonic() - t0
+    gd = GammasDict.load(pfile)
+    if not ok or body != f"{len(gd)} gammas" or len(gd) < 10:
+        raise RuntimeError(f"genpatterns: {ok} {body!r}, {len(gd)} gammas in the file")
+    n_spatial = sum(k[0].isdigit() for k in gd.table)
+    print(f"genpatterns on {GAMMAS_SGFS} of phase 13's SGFs: '= {body}' ({n_spatial} spatial, "
+          f"dist {gd.dist}) in {gen_s:.1f} s  [{card}]")
+
+    # (b) the device gammas at 19x19, card vs CPU
+    t_b = time.monotonic()
+    n = 19
+    # the analysis (legality, liberty map) from the kernel's plain twin, a
+    # seeded ownership
+    a_cpu = TA.board_analysis(s19.stones, s19.size, s19.ko, s19.to_move)
+    legal, libs, last = a_cpu["legal"], a_cpu["libs"], s19.last_moves[:, 0]
+    own = torch.from_numpy(np.random.RandomState(11).uniform(-1, 1, (s19.stones.shape[0], n * n))
+                           .astype(np.float32))
+    d19 = s19.to(dev)
+    dev_cpu = GD.DeviceGammas.compile(gd, device="cpu")
+    dev_card = GD.DeviceGammas.compile(gd, device=dev)
+    keys = GD.spatial_keys_batch(s19.stones, s19.size, s19.to_move, gd.dist)
+    keys_card = GD.spatial_keys_batch(d19.stones, d19.size, d19.to_move, gd.dist)
+    compare(torch, {"keys": keys_card}, {"keys": keys}, "19x19 spatial keys")
+    g_cpu, g_card = dev_cpu.lookup(keys), dev_card.lookup(keys_card)
+    compare(torch, {"lookup": g_card}, {"lookup": g_cpu}, "19x19 table lookups")
+    hits = int((g_cpu != 1.0).sum())
+    args = (s19.stones, s19.size, s19.to_move, legal, last, libs, own)
+    card_args = tuple(a.to(dev) for a in args)
+    p_cpu = GD.gammas_policy_device(dev_cpu, *args[:-1], ownership=own)
+    p_card = GD.gammas_policy_device(dev_card, *card_args[:-1], ownership=card_args[-1])
+    p_err = float((p_card.cpu() - p_cpu).abs().max())
+    if not p_err <= GAMMAS_TOL:
+        raise RuntimeError(f"19x19 gammas policy: card vs CPU {p_err} > {GAMMAS_TOL}")
+    ms = {b: time_card(torch, lambda *a: GD.gammas_policy_device(dev_card, *a[:-1],
+                                                                 ownership=a[-1]),
+                       tuple(a[:b] for a in card_args), iters=10) for b in (256, 1)}
+    print(f"19x19 device gammas on phase 3's {keys.shape[0]} positions: keys and lookups "
+          f"({hits} of {keys.numel()} cells found in the table) equal the CPU's; the gammas "
+          f"policy within {p_err:.3g} (limit {GAMMAS_TOL}); gammas_policy_device "
+          f"{ms[256]:.3f} ms at B=256, {ms[1]:.3f} ms at B=1  [{card}]")
+    _, net_cpu = load_checkpoint_for_inference(str(wfile), boardsize=n)
+    net_card = copy.deepcopy(net_cpu).to(dev)
+    env19 = GoEnv(n=n)
+    # the evaluators read the analysis from ctx (the CPU's from the plain
+    # twin above, the card's from the kernel)
+    a_card = TA.board_analysis(d19.stones, d19.size, d19.ko, d19.to_move)
+    ctx = {"cpu": {"ladders": ladders19, "analysis": a_cpu},
+           "cuda": {"ladders": ladders19.to(dev), "analysis": a_card}}
+    evs = {}
+    for where, net, st, gdev in (("cpu", net_cpu, s19, dev_cpu), ("cuda", net_card, d19,
+                                                                  dev_card)):
+        evs[where] = make_eval_fn(env19, net, symmetry="random", ladder_mode="root",
+                                  gammas=(gdev, GAMMAS_FACTOR))(st, ctx[where])
+    plain = make_eval_fn(env19, net_card, symmetry="random", ladder_mode="root")(
+        d19, ctx["cuda"])
+    torch.cuda.synchronize()
+    ev_err = max(float((getattr(evs["cpu"], k) - getattr(evs["cuda"], k).cpu()).abs().max())
+                 for k in evs["cpu"]._fields)
+    moved = float((evs["cuda"].priors - plain.priors).abs().max())
+    if not ev_err <= EVAL_ATOL or not moved > 0:
+        raise RuntimeError(f"19x19 mixed root NetEvals: card vs CPU {ev_err} (limit "
+                           f"{EVAL_ATOL}); the mix moved the priors by {moved}")
+    print(f"19x19 gammas-mixed root NetEvals (b6c96 f32, factor {GAMMAS_FACTOR}): max abs err "
+          f"card vs CPU {ev_err:.3g} (limit {EVAL_ATOL}); the mix moves a prior by up to "
+          f"{moved:.4f}; (b) took {time.monotonic() - t_b:.1f} s")
+
+    # (c) the GTP session with --patterns
+    spy = KernelSpy(TA, LK, FK, late=True)
+    genmoves = [f"genmove {'bw'[i % 2]}" for i in range(GAMMAS_GENMOVES)]
+    script = (["boardsize 19", "clear_board"] + genmoves
+              + ["gogui-gammas_heatmap", "gogui-gammas_rating",
+                 "sayuri-setoption name gammas policy factor value 0",
+                 f"genmove {'bw'[GAMMAS_GENMOVES % 2]}", "quit"])
+    argv = ["--config", str(GTP_CONFIG), "--weights", str(wfile), "--patterns", str(pfile),
+            "--gammas-policy-factor", str(GAMMAS_FACTOR)]
+    marks = {}
+
+    def on_line(line):
+        if line.startswith("sayuri-setoption"):
+            marks["with"] = counts()
+
+    spy.install()
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        with PlainGuard():
+            answers, timed = gtp_cli(torch, dev, argv, script,
+                                     io.StringIO("".join(f"{c}\n" for c in script)),
+                                     io.StringIO(), "gammas GTP", on_line)
+    finally:
+        spy.remove()
+    session_s = time.monotonic() - t0
+    launches = counts()
+    need(launches, "gammas GTP", some=("step_and_analyze", "board_analysis", "ladder_prep",
+                                       "flood", "chain_labels"))
+    sims_with = sum(p for _, _, p in timed[:GAMMAS_GENMOVES])
+    sims_without = timed[-1][2]
+    without = {k: launches[k] - marks["with"][k] for k in launches}
+    per_sim = {tag: {k: round(v / max(s, 1), 3) for k, v in c.items() if v}
+               for tag, c, s in (("with", marks["with"], sims_with),
+                                 ("without", without, sims_without))}
+    secs = [round(t, 3) for _, t, _ in timed]
+    print(f"19x19 gtp-p400 session with --patterns, factor {GAMMAS_FACTOR} ({session_s:.1f} s): "
+          f"every answer '=', moves {[a.split()[1] for a in answers[2:2 + GAMMAS_GENMOVES]]}; "
+          f"genmove seconds {secs[:-1]} with the gammas, {secs[-1]} at factor 0 (playouts "
+          f"{[p for _, _, p in timed]}); phase 14's median without patterns "
+          f"{gtp_genmove_s:.3f} s  [{card}]")
+    print(f"kernel launches a simulation with the gammas {per_sim['with']}, at factor 0 "
+          f"{per_sim['without']}")
+    # all CUDA kernels a simulation, a search each way from the same position
+    t_p = time.monotonic()
+    opts = Options().parse_args(argv)
+    opts.check_gtp_flags()
+    agent = CLI.build_gtp_loop(opts, device=dev).agent
+    agent.play(0, 3 * n + 3)
+    agent.think(playouts=8)
+    prof = {}
+    for factor in (GAMMAS_FACTOR, 0.0):
+        agent.gammas_policy_factor = factor
+        agent.refresh_gammas()
+        t0 = time.monotonic()
+        agent.think(playouts=GAMMAS_PROFILE_PLAYOUTS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        agent._drop_tree()
+        prof[factor] = (wall, profile_gammas(
+            torch, lambda: agent.think(playouts=GAMMAS_PROFILE_PLAYOUTS)))
+    if prof[0.0][1] is None:
+        print("CUDA kernels a simulation: not measured (the profiler saw no device)")
+    else:
+        p = GAMMAS_PROFILE_PLAYOUTS
+        for factor, (wall, (k, busy, gk, gms, stages)) in prof.items():
+            print(f"a {p}-playout search from a new tree at factor {factor} (b6c96 bf16): "
+                  f"{1e3 * wall / p:.2f} ms a simulation unprofiled; under torch.profiler "
+                  f"{k / p:.1f} CUDA kernels a simulation, card busy {busy / p:.3f} ms, idle "
+                  f"share {1 - busy / 1e3 / wall:.4f}; the gammas mix {gk / p:.1f} kernels "
+                  f"and {gms / p:.4f} device ms a simulation; kernels a simulation by stage "
+                  f"{ {k_: round(v / p, 1) for k_, v in sorted(stages.items())} }  [{card}]")
+        if not prof[GAMMAS_FACTOR][1][2] or prof[0.0][1][2]:
+            raise RuntimeError(f"the gammas mix ran {prof[GAMMAS_FACTOR][1][2]} kernels at "
+                               f"factor {GAMMAS_FACTOR}, {prof[0.0][1][2]} at 0")
+    print(f"the profiled searches took {time.monotonic() - t_p:.1f} s")
+    seen = {}
+    for (name, *_), c in spy.counts.items():
+        seen[name] = seen.get(name, 0) + c
+    if any(seen.get(k, 0) != v for k, v in launches.items()):
+        raise RuntimeError(f"gammas GTP: the spy saw {seen}, the counters {launches}")
+    shapes = check_shapes(torch, card, spy, "gammas GTP", lambda k, c: f"launch {k} of {c}")
+
+    # (d) the A/B harness on the card
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        line = ab_match.main(["--games", str(AB_GAMES), "--boardsize", str(AB_BOARD),
+                              "--playouts", str(AB_PLAYOUTS),
+                              "--a", "gumbel_per_selection=true",
+                              "--b", "gumbel_per_selection=false"])
+    torch.cuda.synchronize()
+    ab_s = time.monotonic() - t0
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    if (printed["games"] != AB_GAMES
+            or printed["a_wins"] + printed["a_losses"] + printed["draws"] != AB_GAMES
+            or printed["overrides_b"] != {"gumbel_per_selection": False}):
+        raise RuntimeError(f"ab_match printed {printed}")
+    need(counts(), "ab_match", some=("step_and_analyze", "flood"))
+    print(f"ab_match on the card ({AB_GAMES} {AB_BOARD}x{AB_BOARD} games, {AB_PLAYOUTS} "
+          f"playouts, weightless, a draw a selection vs one a search) in {ab_s:.1f} s: "
+          f"{json.dumps(line)}; launches { {k: v for k, v in counts().items() if v} }  [{card}]")
+    print(f"gammas phase: {time.monotonic() - t_phase:.1f} s")
+    return launches, shapes
+
+
 def main():
     import torch
 
@@ -1548,7 +1860,8 @@ def main():
     # ---- 3. kernel parity ----
     phase("kernel parity")
     t0 = time.monotonic()
-    s19, a19 = random_positions(19, PARITY_B, seed=0, max_moves=260)
+    # played on the card: the same games as the plain env's, in seconds
+    s19, a19 = random_positions(19, PARITY_B, seed=0, max_moves=260, device=dev)
     print(f"{PARITY_B} random 19x19 positions in {time.monotonic() - t0:.1f} s")
     gold = golden_positions(torch, np)
     stress = {n: stress_positions(n) for n in (19, 9)}
@@ -2179,7 +2492,7 @@ def main():
                          "--config", str(ROOT / "configs/selfplay-gumbel-p150.txt"),
                          "--playouts", str(SP_PLAYOUTS),
                          "--fastsearch-playouts", str(SP_FAST_PLAYOUTS),
-                         "--num-games", str(SP_GAMES),
+                         "--num-games", str(SP_GAMES), "--parallel-games", str(SP_GAMES),
                          "--weights-dir", str(wdir), "--target-directory", str(out_dir)],
                         device=dev)
         torch.cuda.synchronize()
@@ -2259,7 +2572,7 @@ def main():
 
     # ---- 14. GTP ----
     phase("GTP")
-    gtp_launches, gtp_shapes = run_gtp_phase(
+    gtp_launches, gtp_shapes, gtp_genmove_s = run_gtp_phase(
         torch, dev, card, wfile, work, reset_counts, counts, need)
     phase_done("GTP")
 
@@ -2280,6 +2593,13 @@ def main():
         phase("group")
         group_launches, group_shapes = run_group_phase(torch, card, out_dir, work)
         phase_done("group")
+
+        # ---- 18. the pattern gammas ----
+        phase("gammas")
+        gammas_launches, gammas_shapes = run_gammas_phase(
+            torch, np, dev, card, s19, cpu_planes["random"], wfile, out_dir / "sgf", work,
+            reset_counts, counts, need, gtp_genmove_s)
+        phase_done("gammas")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2319,6 +2639,8 @@ def main():
             "rl_by_shape": rl_shapes.get(name, []),
             "group_launches": group_launches[name],
             "group_by_shape": group_shapes.get(name, []),
+            "gammas_launches": gammas_launches[name],
+            "gammas_by_shape": gammas_shapes.get(name, []),
             "plain_device": r.get("plain_device", "cuda"),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })

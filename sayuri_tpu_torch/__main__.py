@@ -61,6 +61,8 @@ def build_gtp_loop(opts: Options, device="cuda", net=None):
         symm_pruning=g("symm_pruning"),
         friendly_pass=g("friendly_pass"),
         capture_all_dead=g("capture_all_dead"),
+        patterns_file=g("patterns_file") or None,
+        gammas_policy_factor=g("gammas_policy_factor"),
         device=device,
     )
     agent.reuse_tree = g("reuse_tree")

@@ -15,6 +15,17 @@ blocks) or ``b6c96-mix`` (the same width and depth with one block of each
 family, bottleneck, nested bottleneck, mixer V1 and V2 and residual, and
 the RepLK policy head); the metric's name ends in the net's.
 
+    python -m sayuri_tpu_torch.bench deep [batch]
+    python -m sayuri_tpu_torch.bench cached [batch]
+
+the same bench in two variants, as the JAX package's bench.py has them:
+``deep``, 400 playouts a search (default batch 128: playouts on bigger
+trees cost more each; metric suffix ``_deep400``), and ``cached``, 96
+playouts with the NN cache of 1024 sets on (default batch 256; empty-board
+lanes transpose heavily, so an upper bound; suffix ``_cached``, with the
+last timed search's cache hit rate, hits and in-batch duplicates over the
+queries).
+
     python -m sayuri_tpu_torch.bench profile [batch] [playouts] [trace.json] [--net NET]
 
 profiles one search: device busy/idle share, host time per search stage,
@@ -129,9 +140,11 @@ def net_config(net: str = "b6c96", boardsize: int = 19):
     return NetConfig(boardsize=boardsize, **NETS[net])
 
 
-def _setup(batch: int, playouts: int, device, seed: int, net: str = "b6c96"):
+def _setup(batch: int, playouts: int, device, seed: int, net: str = "b6c96",
+           nn_cache_size: int = 0):
     """(MCTS driver, root states): the net (NETS) with seeded random weights,
-    bf16, random symmetry, root ladder planes, `batch` empty 19x19 boards."""
+    bf16, random symmetry, root ladder planes, `batch` empty 19x19 boards;
+    the NN cache of `nn_cache_size` sets (0: none)."""
     from sayuri_tpu_torch.game.state import GoEnv
     from sayuri_tpu_torch.mcts.core import MCTS, SearchConfig
     from sayuri_tpu_torch.models.evaluator import make_eval_fn
@@ -141,7 +154,8 @@ def _setup(batch: int, playouts: int, device, seed: int, net: str = "b6c96"):
     model = SayuriNet(net_config(net)).init_random(seed).to(device).eval()
     eval_fn = make_eval_fn(env, model, symmetry="random", ladder_mode="root",
                            compute_dtype=torch.bfloat16)
-    mcts = MCTS(env, eval_fn, SearchConfig(max_nodes=playouts + 16, max_depth=64))
+    mcts = MCTS(env, eval_fn, SearchConfig(max_nodes=playouts + 16, max_depth=64,
+                                           nn_cache_size=nn_cache_size))
     return mcts, env.new_batch(batch, komi=7.5, device=device)
 
 
@@ -165,13 +179,15 @@ def _searcher(mcts, states, playouts):
 
 
 def bench_playouts(batch: int = 256, playouts: int = 96, device="cuda",
-                   iters: int = 3, seed: int = 0, roots=None, net: str = "b6c96"):
+                   iters: int = 3, seed: int = 0, roots=None, net: str = "b6c96",
+                   nn_cache_size: int = 0):
     """Time `iters` searches of `playouts` simulations of `net` (NETS)
     after one warm-up search, from `batch` empty 19x19 boards or, when
-    given, from the 19x19 GoState `roots` (moved to `device`). Returns a
+    given, from the 19x19 GoState `roots` (moved to `device`); each search
+    starts a new NN cache of `nn_cache_size` sets (0: none). Returns a
     dict with the rate, the last tree, the MCTS object and the root
     states."""
-    mcts, states = _setup(batch, playouts, device, seed, net)
+    mcts, states = _setup(batch, playouts, device, seed, net, nn_cache_size)
     if roots is not None:
         states = roots.to(device)
         batch = states.stones.shape[0]
@@ -787,7 +803,8 @@ def main():
         sys.exit("bench: no CUDA device; this benchmark runs on the card only")
     args = sys.argv[1:]
     net = "b6c96"
-    if "--net" in args and args[0] in ("kernels-ab", "envsteps", "selfplay", "gtp"):
+    if "--net" in args and args[0] in ("kernels-ab", "envsteps", "selfplay", "gtp", "deep",
+                                       "cached"):
         sys.exit(f"bench {args[0]}: --net is read by bench, bench profile and bench train only")
     if "--net" in args:
         i = args.index("--net")
@@ -867,6 +884,25 @@ def main():
             **res,
             "device": device_info(),
         }))
+        return
+    if args and args[0] in ("deep", "cached"):
+        deep = args[0] == "deep"
+        batch = int(args[1]) if len(args) > 1 else (128 if deep else 256)
+        playouts, cache_sets = (400, 0) if deep else (96, 1024)
+        res = bench_playouts(batch, playouts, nn_cache_size=cache_sets)
+        line = {
+            "metric": METRIC + ("_deep400" if deep else "_cached"),
+            "value": res["rate"],
+            "unit": "playouts/s",
+            "batch": batch,
+            "playouts": playouts,
+            "nn_cache_size": cache_sets,
+        }
+        if cache_sets:
+            c = res["tree"].cache
+            q, h, d = (int(x.sum()) for x in (c.queries, c.hits, c.dups))
+            line.update(cache_hit_rate=(h + d) / max(q, 1), queries=q, hits=h, dups=d)
+        print(json.dumps(dict(line, device=device_info())))
         return
     if args and args[0] == "profile":
         batch = int(args[1]) if len(args) > 1 else 256

@@ -198,21 +198,19 @@ _SEARCH_OPTIONS = frozenset({
     "dirichlet_factor", "first_pass_bonus",
 })
 # what the gtp mode reads: the search fields, the Agent's and the loop's
-# arguments (the pattern gammas wait for their port)
+# arguments
 GTP_OPTIONS = _SEARCH_OPTIONS | {
     "mode", "boardsize", "komi", "playouts", "weights_file", "use_rollout",
     "ponder", "ponder_factor", "kldgain_per_node", "kldgain_interval",
     "policy_temp", "root_policy_temp", "suppress_pass_factor", "use_stm_winrate",
     "use_optimistic_policy", "timemanage", "symm_pruning", "friendly_pass",
     "capture_all_dead", "reuse_tree", "book_file", "const_time", "lag_buffer",
-    "resign_threshold", "kgs_hint", "logfile",
+    "resign_threshold", "kgs_hint", "logfile", "patterns_file", "gammas_policy_factor",
 }
 # what the benchmark mode reads
 BENCHMARK_OPTIONS = _SEARCH_OPTIONS | {
     "mode", "boardsize", "komi", "playouts", "weights_file", "benchmark_query",
 }
-# flags that need the pattern-gammas port
-_GAMMAS_OPTIONS = ("patterns_file", "gammas_policy_factor")
 # options that no mode of the JAX package acts on: the gtp and benchmark
 # modes accept and ignore them, as the JAX package does, and log them once
 # (--scoring-rule is not among them: both packages parse it and neither
@@ -331,11 +329,8 @@ class Options:
             unsupported = [k for k in unsupported if k not in NOOP_OPTIONS]
         if unsupported:
             flags = ", ".join("--" + k.replace("_", "-") for k in unsupported)
-            gammas = [f for f in _GAMMAS_OPTIONS if f in unsupported]
-            why = (" (" + ", ".join("--" + k.replace("_", "-") for k in gammas)
-                   + " wait for the pattern-gammas port)") if gammas else ""
             raise ValueError(f"--mode {mode}: not supported by the PyTorch port yet: "
-                             f"{flags}{why}")
+                             f"{flags}")
 
     def check_selfplay_flags(self):
         """Raise ValueError naming every given option the selfplay mode
@@ -344,8 +339,7 @@ class Options:
 
     def check_gtp_flags(self):
         """Raise ValueError naming every given option the gtp mode does not
-        read (--patterns and --gammas-policy-factor among them, until the
-        pattern gammas are ported), apart from NOOP_OPTIONS, which it logs."""
+        read, apart from NOOP_OPTIONS, which it logs."""
         self._check_flags("gtp", GTP_OPTIONS)
 
     def check_benchmark_flags(self):

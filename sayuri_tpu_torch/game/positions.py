@@ -15,29 +15,30 @@ from sayuri_tpu_torch.game import board as B
 from sayuri_tpu_torch.game.state import GoEnv
 
 
-def random_positions(n: int, b: int, seed: int, max_moves: int, size=None):
-    """Legal random games with the plain env on the CPU, on an n x n buffer
-    (games of `size` when given); each lane stops after its own number of
-    moves. Returns (states, actions) with one legal next action per lane
-    (some passes)."""
+def random_positions(n: int, b: int, seed: int, max_moves: int, size=None, device="cpu"):
+    """Legal random games on an n x n buffer (games of `size` when given),
+    played by the env on `device` (the plain env on the CPU, the kernels on
+    the card: the same legal moves, so the same games); each lane stops
+    after its own number of moves. Returns (states, actions) on the CPU,
+    with one legal next action per lane (some passes)."""
     env = GoEnv(n=n)
     rng = np.random.RandomState(seed)
-    s = env.new_batch(b, size=size, device="cpu")
+    s = env.new_batch(b, size=size, device=device)
     stop = rng.randint(0, max_moves, size=b)
     for m in range(max_moves):
-        legal = env.legal_action_mask(s).numpy()
+        legal = env.legal_action_mask(s).cpu().numpy()
         acts = np.array([
             rng.choice(np.nonzero(l[:-1])[0])
             if l[:-1].any() and m < stop[i] else n * n
             for i, l in enumerate(legal)
         ], np.int32)
-        s = env.step(s, torch.from_numpy(acts))
+        s = env.step(s, torch.from_numpy(acts).to(device))
         # keep lanes alive: passes here only mark a lane as finished
         s = s.replace(terminated=torch.zeros_like(s.terminated),
                       pass_count=torch.zeros_like(s.pass_count))
-    legal = env.legal_action_mask(s).numpy()
+    legal = env.legal_action_mask(s).cpu().numpy()
     acts = np.array([rng.choice(np.nonzero(l)[0]) for l in legal], np.int32)
-    return s, torch.from_numpy(acts)
+    return s.to("cpu"), torch.from_numpy(acts)
 
 
 def spiral(n: int) -> np.ndarray:

@@ -21,8 +21,11 @@ search draws nothing) come from one ``torch.Generator`` seeded from
 `seed`, where the JAX package splits a threefry key; the capture-all-dead
 pick draws from ``np.random.RandomState(seed)`` in both packages.
 
-The pattern gammas are not ported: the Agent raises when given a patterns
-file.
+With a patterns file (``--patterns``) and a positive gammas_policy_factor,
+the pattern-gammas policy is mixed into the priors at every expansion,
+root included (``pattern/gammas_device.py``, inside the evaluator); a
+table set on ``agent.gammas`` without ``refresh_gammas`` is mixed into the
+root's priors on the host instead (``_mix_gammas_policy``).
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ class Agent:
         friendly_pass: bool = False,
         capture_all_dead: bool = False,
         patterns_file: str | None = None,
+        gammas_policy_factor: float = 0.0,
         use_rollout: bool = False,
         policy_temp: float = 1.0,
         root_policy_temp: float = -1.0,
@@ -102,9 +106,6 @@ class Agent:
         device="cuda",
         compute_dtype: torch.dtype | None = None,
     ):
-        if patterns_file:
-            raise ValueError("patterns files (pattern gammas) are not supported by the "
-                             "PyTorch port yet")
         self.device = torch.device(device)
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -124,6 +125,14 @@ class Agent:
         # post-search move hygiene (off by default)
         self.friendly_pass = friendly_pass
         self.capture_all_dead = capture_all_dead
+        # pattern-gammas policy mixing (--patterns + gammas_policy_factor)
+        self.gammas = None
+        if patterns_file:
+            from sayuri_tpu_torch.pattern.gammas import GammasDict
+
+            self.gammas = GammasDict.load(patterns_file)
+        self.gammas_policy_factor = float(gammas_policy_factor)
+        self._gammas_dev_src = None
         self.use_rollout = use_rollout
         self.policy_temp = float(policy_temp)
         # the root follows policy_temp unless set explicitly
@@ -158,19 +167,40 @@ class Agent:
     def _new_state(self):
         return self.env.new_batch(1, komi=self.komi, rule=self.rule, device=self.device)
 
+    def _gammas_arg(self):
+        """(DeviceGammas, factor) for the mix at every expansion, or None
+        when patterns are off. The compiled table is cached for each
+        GammasDict instance."""
+        if self.gammas is None or self.gammas_policy_factor <= 0:
+            return None
+        from sayuri_tpu_torch.pattern.gammas_device import DeviceGammas
+
+        if self._gammas_dev_src is not self.gammas:
+            self._gammas_dev = DeviceGammas.compile(self.gammas, device=self.device)
+            self._gammas_dev_src = self.gammas
+        return (self._gammas_dev, float(self.gammas_policy_factor))
+
+    def refresh_gammas(self):
+        """A live change of the patterns or the factor: the evaluators hold
+        both, so rebuild them (the game state stays)."""
+        self._build_eval_fns()
+        self._drop_tree()
+
     def _build_eval_fns(self):
+        gammas_arg = self._gammas_arg()
+        self._gammas_in_eval = gammas_arg is not None
         root_eval_fn = None
         if self.net is not None:
             # search queries use a random symmetry per leaf; the debug
-            # probes (raw_nn, wdl_rating) the direct evaluator, and neither
-            # suppresses pass
+            # probes (raw_nn, wdl_rating) the direct evaluator, which
+            # neither mixes gammas nor suppresses pass
             sym = "random"
             leaf_head = "optimistic_prob" if self.use_optimistic_policy else "prob"
             kw = dict(compute_dtype=self.compute_dtype)
             self.eval_fn = make_eval_fn(
                 self.env, self.net, symmetry=sym, policy_temp=self.policy_temp,
                 policy_head=leaf_head, suppress_pass_factor=self.suppress_pass_factor,
-                use_stm_winrate=self.use_stm_winrate, **kw)
+                use_stm_winrate=self.use_stm_winrate, gammas=gammas_arg, **kw)
             # the root is always evaluated with the normal policy head and
             # root_policy_temp
             root_temp = (self.root_policy_temp if self.root_policy_temp > 0
@@ -179,7 +209,7 @@ class Agent:
                 root_eval_fn = make_eval_fn(
                     self.env, self.net, symmetry=sym, policy_temp=root_temp,
                     policy_head="prob", suppress_pass_factor=self.suppress_pass_factor,
-                    use_stm_winrate=self.use_stm_winrate, **kw)
+                    use_stm_winrate=self.use_stm_winrate, gammas=gammas_arg, **kw)
             self.eval_fn_direct = make_eval_fn(
                 self.env, self.net, symmetry=0, policy_temp=self.policy_temp,
                 suppress_pass_factor=0.0, **kw)
@@ -193,6 +223,10 @@ class Agent:
             self.eval_fn_direct = self.eval_fn
             self.eval_fn_avg = self.eval_fn
             self.has_net = False
+            if gammas_arg is not None:
+                from sayuri_tpu_torch.pattern.gammas_device import wrap_eval_with_gammas
+
+                self.eval_fn = wrap_eval_with_gammas(self.env, self.eval_fn, *gammas_arg)
         if self.use_rollout:
             from sayuri_tpu_torch.mcts.rollout import wrap_eval_with_rollout
 
@@ -357,10 +391,54 @@ class Agent:
             ctx = self._ladders(self.state)
             tree = self.mcts.init_tree(self.state, self._gen, prior_mask=mask, ctx=ctx)
             self._last_reused = False
+        self._mix_gammas_policy(tree)
         self._tree = tree
         self._ctx = ctx
         self._tree_moves = len(self.moves)
         return tree, ctx
+
+    def _last_board_move(self):
+        """The last move's vertex, None for none or a pass."""
+        last = self.moves[-1][1] if self.moves else None
+        return None if last is not None and last >= self.size * self.size else last
+
+    def _mix_gammas_policy(self, tree):
+        """Host-side root gammas mix, p = (1-f)*nn + f*(1-pass_prob)*gammas
+        with the gammas scaled by the net's ownership through the MC-owner
+        table, written into the tree's root priors. Only a fallback: when
+        patterns were loaded at construction or refresh time, the evaluator
+        mixes them at every expansion, root included, and this must not mix
+        twice."""
+        f = self.gammas_policy_factor
+        if self.gammas is None or f <= 0 or self._gammas_in_eval:
+            return
+        size = self.size
+        prior = _np(tree.prior[0, 0]).copy()
+        legal = prior > 0
+        own = _np(tree.root_ownership[0])
+        if self.to_move() == 1:
+            own = -own
+        gp = self.gammas.policy(self.stones(), size, self.to_move(), legal,
+                                last_move=self._last_board_move(), ownership=own)
+        mixed = prior.copy()  # the pass prior stays untouched
+        mixed[: size * size] = ((1.0 - f) * prior[: size * size]
+                                + f * (1.0 - prior[size * size]) * gp[: size * size])
+        mixed = np.where(legal, mixed, 0.0)
+        s = mixed.sum()
+        if s > 0:
+            mixed /= s
+        tree.prior[0, 0] = torch.as_tensor(mixed, dtype=torch.float32, device=self.device)
+
+    def gammas_policy_map(self):
+        """The pattern-gammas policy over the current position for the
+        gogui views, or None when no patterns are loaded."""
+        if self.gammas is None:
+            return None
+        size = self.size
+        legal = self.legal_mask()
+        return self.gammas.policy(self.stones(), size, self.to_move(),
+                                  legal[: size * size + 1],
+                                  last_move=self._last_board_move())
 
     def _one_reasonable_move(self, tree, done, cap_left, elapsed, budget):
         """True when exactly one root child can still matter: every other

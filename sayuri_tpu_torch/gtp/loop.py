@@ -3,10 +3,7 @@ the JAX package's direct array work routed through the Agent).
 
 Commands are dispatched to the Agent; analysis commands emit the
 lz/kata-style info lines GUIs expect. The command list, the engine's name
-and version are the JAX package's. The pattern-gammas commands
-(genpatterns, gogui-gammas_heatmap, gogui-gammas_rating and the gammas
-options of sayuri-setoption) answer that the port does not support them
-yet.
+and version are the JAX package's.
 
 A handler's exception is a GTP failure (a "?" answer), except where it
 comes from the card or the kernels: an exception raised in the kernel
@@ -30,7 +27,6 @@ from sayuri_tpu_torch.gtp.engine import Agent, _np, gtp_to_vertex, vertex_to_gtp
 from sayuri_tpu_torch.gtp.time_control import TimeControl
 
 _OPS_DIR = Path(__file__).resolve().parent.parent / "ops"
-_UNPORTED = "not supported by the PyTorch port yet"
 
 KNOWN_COMMANDS = [
     "protocol_version", "name", "version", "known_command", "list_commands",
@@ -596,8 +592,17 @@ class GtpLoop:
                 self.agent.search_cfg, nn_cache_size=max(0, int(value))
             )
             self.agent.rebuild_search()
-        elif name in ("gammas policy factor", "patterns file"):
-            return False, _UNPORTED
+        elif name == "gammas policy factor":
+            self.agent.gammas_policy_factor = min(1.0, max(0.0, float(value)))
+            self.agent.refresh_gammas()
+        elif name == "patterns file":
+            from sayuri_tpu_torch.pattern.gammas import GammasDict
+
+            try:
+                self.agent.gammas = GammasDict.load(value)
+            except OSError:
+                return False, "cannot load patterns file"
+            self.agent.refresh_gammas()
         else:
             return False, "invalid option name"
         return True, ""
@@ -867,10 +872,36 @@ class GtpLoop:
         return True, "\n".join(lines)
 
     def _cmd_gogui_gammas_heatmap(self, args):
-        return False, _UNPORTED
+        """Pattern-gamma policy colors (gtp.cc:954-975)."""
+        gp = self.agent.gammas_policy_map()
+        if gp is None:
+            return False, "no patterns loaded"
+        size = self.agent.size
+        out = []
+        for i in range(size * size):
+            v = float(gp[i])
+            if v > 1e-4:
+                v = v ** 0.5
+            out.append(self._gogui_color(v, vertex_to_gtp(i, size)))
+        return True, "\n".join(out)
 
     def _cmd_gogui_gammas_rating(self, args):
-        return False, _UNPORTED
+        gp = self.agent.gammas_policy_map()
+        if gp is None:
+            return False, "no patterns loaded"
+        size = self.agent.size
+        nn = size * size
+        best, lines = -1, []
+        for i in range(nn):
+            if gp[i] > 1.0 / nn:
+                if best < 0 or gp[i] > gp[best]:
+                    best = i
+                lines.append(self._gogui_label(gp[i], vertex_to_gtp(i, size)))
+        out = []
+        if best >= 0:
+            c = "b" if self.agent.to_move() == 0 else "w"
+            out.append(f"VAR {c} {vertex_to_gtp(best, size)}")
+        return True, "\n".join(out + lines)
 
     def _cmd_gogui_ladder_map(self, args):
         """Ladder feature colors: atari .2 / take .4 / escapable .8 /
@@ -945,7 +976,18 @@ class GtpLoop:
         return True, ""
 
     def _cmd_genpatterns(self, args):
-        return False, _UNPORTED
+        """MM-fit spatial/tactical gammas from SGFs (gtp.cc:660-681):
+        ``genpatterns SGF_FILE_OR_DIR OUT_FILE [MIN_COUNT]``."""
+        if len(args) < 2:
+            return False, "file name is empty"
+        from sayuri_tpu_torch.pattern.gammas import train_from_sgfs
+
+        src = Path(args[0])
+        paths = sorted(src.rglob("*.sgf")) if src.is_dir() else [src]
+        min_count = int(args[2]) if len(args) > 2 else 0
+        gammas = train_from_sgfs(paths, min_count=min_count, device=self.agent.device)
+        gammas.save(args[1])
+        return True, f"{len(gammas)} gammas"
 
     def _cmd_genopenings(self, args):
         """Generate fair random openings as SGFs (gtp.cc:682-743):
@@ -1263,3 +1305,32 @@ def COLS_FOR(size):
 
     return [COLS[x] for x in range(size)]
 
+
+
+def main(argv=None, device="cuda"):
+    """``python -m sayuri_tpu_torch.gtp.loop [--boardsize N] [--komi K]
+    [--playouts P] [--weights F]``: the GTP engine on stdin / stdout on the
+    card (a caller passes ``device="cpu"`` for a CPU run); `F` is a v5
+    weight file or a trainer checkpoint, weightless without one."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="sayuri-tpu GTP engine (PyTorch port)")
+    ap.add_argument("--boardsize", type=int, default=19)
+    ap.add_argument("--komi", type=float, default=7.5)
+    ap.add_argument("--playouts", type=int, default=400)
+    ap.add_argument("--weights", type=str, default=None)
+    args = ap.parse_args(argv)
+
+    kwargs = dict(boardsize=args.boardsize, komi=args.komi, playouts=args.playouts,
+                  device=device)
+    if args.weights:
+        from sayuri_tpu_torch.models import weights_io
+
+        kwargs["net"] = weights_io.load_checkpoint_for_inference(args.weights)[1]
+    loop = GtpLoop(**kwargs)
+    loop.run(sys.stdin, sys.stdout)
+    return loop
+
+
+if __name__ == "__main__":
+    main()

@@ -92,6 +92,10 @@ class SearchConfig:
     gumbel_considered_moves: int = 16
     gumbel_prom_visits: int = 1
     gumbel_playouts_threshold: int = 400
+    # fresh Gumbel noise at every root selection and at the move pick;
+    # False draws once a search (Tree.root_gumbel), as the original
+    # Gumbel-AlphaZero does
+    gumbel_per_selection: bool = True
     # LCB best-move selection
     lcb_reduction: float = 0.02
     ci_alpha: float = 1e-5
@@ -133,6 +137,9 @@ class Tree:
     use_gumbel: torch.Tensor     # [B] bool per-lane Gumbel switch
     cache: Any = None            # mcts/nncache.NNCache or None
     gen: Any = None              # torch.Generator of the search's draws
+    # [B, A] the search's one Gumbel draw (-inf off the legal moves) when
+    # cfg.gumbel_per_selection is False, else None
+    root_gumbel: Any = None
 
     @property
     def visits(self):
@@ -250,6 +257,7 @@ class MCTS:
             return buf
 
         noise = self._sample_dirichlet(gen, evals.priors)
+        gumbel = None if cfg.gumbel_per_selection else self._sample_gumbel(gen, evals.priors)
         root_se = expected_score_value(
             evals.black_score, torch.ones_like(evals.black_score),
             evals.black_score, cfg.score_utility_div, float(self.env.n),
@@ -287,7 +295,16 @@ class MCTS:
             use_gumbel=lane_flag(use_gumbel, cfg.gumbel),
             cache=cache,
             gen=gen,
+            root_gumbel=gumbel,
         )
+
+    def _sample_gumbel(self, gen, priors):
+        """[B, A] one Gumbel draw for the whole search: standard Gumbel
+        noise on the legal moves, -inf elsewhere; zeros with Gumbel off."""
+        if not self.cfg.gumbel:
+            return torch.zeros_like(priors)
+        g = sample_gumbel(priors.shape, gen)
+        return torch.where(priors > 0, g, -torch.inf)
 
     def _sample_dirichlet(self, gen, priors):
         """[B, A] root Dirichlet buffer: alpha = dirichlet_init *
@@ -773,11 +790,11 @@ class MCTS:
 
         merged = {f.name: pick(getattr(reused, f.name), getattr(fresh, f.name))
                   for f in dataclasses.fields(Tree)
-                  if f.name not in ("states", "cache", "gen")}
+                  if f.name not in ("states", "cache", "gen", "root_gumbel")}
         out = Tree(**merged,
                    states=GoState(**{k: pick(v, getattr(fresh.states, k))
                                      for k, v in reused.states.fields().items()}),
-                   cache=fresh.cache, gen=fresh.gen)
+                   cache=fresh.cache, gen=fresh.gen, root_gumbel=fresh.root_gumbel)
         # freeze the score-utility center after the merge: reused roots
         # carry the previous search's estimate
         out.score_center = out.stats[:, 0, 3] / out.stats[:, 0, 0].clamp(min=1.0)

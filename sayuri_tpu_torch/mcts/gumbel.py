@@ -17,7 +17,10 @@
 
 Fresh Gumbel noise is drawn at every root selection and at the final move
 pick, from the tree's torch.Generator (the JAX package folds its key by
-simulation index).
+simulation index). With SearchConfig.gumbel_per_selection=False one draw a
+search, made when the tree is built (``Tree.root_gumbel``), serves every
+selection and the move pick: the original Gumbel-AlphaZero formulation,
+which ``tools/ab_match.py`` plays against the default.
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ from sayuri_tpu_torch.mcts.core import sample_gumbel
 
 
 def _selection_gumbel(mcts, tree, sim_idx):
-    """[B, A] fresh Gumbel noise for this selection (`sim_idx` None tags
-    the final move pick)."""
+    """[B, A] Gumbel noise for this selection: fresh from the tree's
+    generator when cfg.gumbel_per_selection (`sim_idx` None tags the final
+    move pick), else the search's one draw."""
+    if not mcts.cfg.gumbel_per_selection:
+        return tree.root_gumbel
     return sample_gumbel(tree.prior[:, 0].shape, tree.gen)
 
 

@@ -8,7 +8,9 @@ under its own dihedral transform drawn from the position hash, and the
 spatial outputs are transformed back; "average" evaluates all eight. The
 options the GTP engine sets are the policy temperature, the policy head
 (the optimistic one for non-root nodes), the pass-suppression factor and
-the side-to-move winrate head.
+the side-to-move winrate head. With `gammas`, the pattern-gammas policy
+is mixed into the priors (``pattern/gammas_device.py``) before the pass
+suppression, as the JAX package orders them.
 
 The board analysis the encoder needs (liberties, safe area, score
 ownership, legality) comes from ``ctx["analysis"]`` when the fused
@@ -61,6 +63,7 @@ def make_eval_fn(
     policy_head: str = "prob",
     suppress_pass_factor: float = SUPPRESS_PASS_FACTOR,
     use_stm_winrate: bool = False,
+    gammas=None,
 ):
     """Build eval_fn(states, ctx) -> NetEvals.
 
@@ -81,6 +84,8 @@ def make_eval_fn(
     (1 - factor) * size^2 legal board moves remain; 0 turns it off.
     `use_stm_winrate`: the value from the net's side-to-move winrate head,
     (q_vals[:, 0] + 1) / 2, instead of (wdl_win - wdl_loss + 1) / 2.
+    `gammas`: (DeviceGammas, factor) mixes the pattern-gammas policy into
+    the priors of every evaluation, reading the analysis' liberty map.
     `net` must be in eval() mode: in train() mode its batch norm would
     normalise over each query batch and rewrite the running statistics."""
     if net.training:
@@ -164,6 +169,11 @@ def make_eval_fn(
                                 lambda p: S.inverse_transform_policy(p, symmetry, n))
         else:
             evals = postprocess(forward(planes), lambda p: p)
+        if gammas is not None:
+            from sayuri_tpu_torch.pattern import gammas_device as GD
+
+            evals = GD.apply_to_evals(gammas[0], gammas[1], states, evals, legal,
+                                      libs=analysis["libs"])
         if suppress_pass_factor > 0.0:
             evals = evals._replace(priors=suppress_pass(evals.priors, legal, states.size,
                                                         suppress_pass_factor))

@@ -13,7 +13,8 @@ parameters }``) is what the trainer and the engine exchange:
 - ``import_reference_weights(filename)`` parses a file into
   (NetConfig, state dict); ``finalize_imported_variables`` builds the net;
 - ``load_checkpoint_for_inference(path)`` does both for a v5 file, and
-  reads the net of the port's trainer checkpoint (``.ckpt``).
+  reads the net of a trainer checkpoint (``.ckpt``): the port's own
+  (``torch.save``), or the JAX package's (``read_jax_checkpoint``).
 
 The layers are linearized in the reference collector's order
 (``layer_plan``: input conv, tower sublayers, policy head, value head).
@@ -24,12 +25,19 @@ mixer's, the RepLK head's) is stored as one merged kernel and bias: each
 conv's effective kernel (its gamma broadcast folded in), the 3x3 one
 zero-padded into the k x k one; on import the merged kernel lands in
 ``conv`` with gamma 0, and ``rep3x3`` is zero. Every block family and both
-policy heads of the net are read and written. The JAX package's trainer
-checkpoint (a pickled flax msgpack blob) is not read: it is refused with a
-message that names it.
+policy heads of the net are read and written.
+
+The JAX package's trainer checkpoint is a pickle of builtins whose
+``state`` is flax's msgpack encoding of the TrainState: an ndarray is a
+msgpack ext of type 1 holding the msgpack of (shape, dtype name, bytes), a
+numpy scalar one of type 3. ``read_jax_checkpoint`` decodes it with
+``msgpack`` and an ext hook (no flax, no JAX) and hands the params and
+batch statistics to ``from_flax_variables``.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import torch
@@ -367,20 +375,62 @@ def finalize_imported_variables(cfg: NetConfig, state_dict, boardsize=None):
     return cfg, net.eval()
 
 
+_FLAX_NDARRAY, _FLAX_NPSCALAR = 1, 3     # flax's msgpack ext type codes
+
+
+class _NoClasses(pickle.Unpickler):
+    """A JAX-package checkpoint pickles dicts, lists, tuples and scalars,
+    and one class: the net config's compute dtype (``jax.numpy.float32``).
+    A dtype class comes back as its dotted name, anything else is refused,
+    so that no module of JAX is imported."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("jax", "numpy", "ml_dtypes"):
+            return f"{module}.{name}"
+        raise ValueError(f"not a JAX-package trainer checkpoint: it pickles {module}.{name}")
+
+
+def read_jax_checkpoint(path):
+    """(net_cfg dict without the compute dtype, {'params', 'batch_stats'}
+    tree of numpy arrays) of a JAX-package trainer checkpoint
+    (``Trainer.save_checkpoint``)."""
+    import msgpack
+
+    def ndarray(data):
+        shape, dtype, buf = msgpack.unpackb(data, raw=True)
+        return np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+
+    def ext(code, data):
+        if code == _FLAX_NDARRAY:
+            return ndarray(data)
+        if code == _FLAX_NPSCALAR:
+            return ndarray(data)[()]
+        return msgpack.ExtType(code, data)
+
+    with open(path, "rb") as f:
+        blob = _NoClasses(f).load()
+    try:
+        state = msgpack.unpackb(blob["state"], ext_hook=ext, raw=False)
+    except (ValueError, msgpack.UnpackException) as e:
+        raise ValueError(f"{path}: not a readable JAX-package trainer checkpoint ({e})") from e
+    # the port picks the forward's dtype where it evaluates
+    net_cfg = {k: v for k, v in blob["net_cfg"].items() if k != "compute_dtype"}
+    return net_cfg, {"params": state["params"], "batch_stats": state["batch_stats"]}
+
+
 def load_checkpoint_for_inference(path: str, boardsize=None):
-    """(NetConfig, SayuriNet in eval mode) from a v5 weight file or from the
-    port's trainer checkpoint (``.ckpt``: its parameters and running
-    statistics, not the SWA average). A JAX-package checkpoint is refused."""
+    """(NetConfig, SayuriNet in eval mode) from a v5 weight file or from a
+    trainer checkpoint (``.ckpt``: its parameters and running statistics,
+    not the SWA average), the port's or the JAX package's."""
     if str(path).endswith(".ckpt"):
         with open(path, "rb") as f:
             zipped = f.read(4) == b"PK\x03\x04"       # torch.save's zip container
-        if not zipped:
-            raise ValueError(
-                f"{path}: not a checkpoint of the PyTorch port's trainer (a JAX-package "
-                "trainer checkpoint, flax msgpack in a pickle, is not readable here); "
-                "export a v5 weight file from it instead")
-        blob = torch.load(path, map_location="cpu", weights_only=True)
         over = {"boardsize": boardsize} if boardsize is not None else {}
+        if not zipped:
+            net_cfg, variables = read_jax_checkpoint(path)
+            cfg = NetConfig(**{**net_cfg, "stack": tuple(net_cfg["stack"]), **over})
+            return cfg, from_flax_variables(SayuriNet(cfg), variables).eval()
+        blob = torch.load(path, map_location="cpu", weights_only=True)
         cfg = NetConfig(**{**blob["net_cfg"], "stack": tuple(blob["net_cfg"]["stack"]), **over})
         net = SayuriNet(cfg)
         net.load_state_dict(blob["model"], strict=True)

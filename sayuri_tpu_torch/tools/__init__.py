@@ -1,2 +1,3 @@
-"""Entry points of the port's learner: ``train_worker`` (one training run
-from a reference setting.json) and ``rl_loop`` (self-play, train, gate)."""
+"""Entry points of the port's tools: ``train_worker`` (one training run
+from a reference setting.json), ``rl_loop`` (self-play, train, gate) and
+``ab_match`` (two search configurations play each other)."""

@@ -51,17 +51,13 @@ def pair(tmp_path_factory):
 ADMIN = ["protocol_version", "name", "version", "list_commands", "known_command genmove",
          "known_command frobnicate", "frobnicate", "query_boardsize", "get_komi", "rules",
          "gogui-rules_game_id", "gogui-rules_board_size", "gogui-analyze_commands",
-         "genpatterns a b", "gogui-gammas_heatmap", "gogui-gammas_rating"]
+         "genpatterns a", "gogui-gammas_heatmap", "gogui-gammas_rating"]
 
 
 def test_admin_commands(pair):
     jloop, tloop = pair
     for line in ADMIN:
-        if line.startswith(("genpatterns", "gogui-gammas")):
-            # the pattern gammas are not ported: a plain failure
-            assert answer(tloop, line) == (False, "not supported by the PyTorch port yet")
-        else:
-            assert answer(jloop, line) == answer(tloop, line), line
+        assert answer(jloop, line) == answer(tloop, line), line
 
 
 def test_game_script(pair, tmp_path):

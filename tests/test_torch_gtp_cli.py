@@ -9,7 +9,8 @@ loop's own behaviour, on the CPU:
   line into the same Agent and loop arguments as the JAX package's
   run_gtp builds (an Agent of each package compared attribute by
   attribute);
-- `--patterns` and `--scoring-rule` raise; the flags that no mode of the
+- `--patterns` and `--gammas-policy-factor` are read (a missing patterns
+  file raises as in the JAX run_gtp), `--scoring-rule` raises; the flags that no mode of the
   JAX package acts on (`--threads`, `--no-fp16`, ...) are ignored, and
   `quit` answers as in the JAX run_gtp;
 - an exception raised in the kernel wrappers (sayuri_tpu_torch/ops) or a
@@ -138,11 +139,18 @@ def test_options_give_the_jax_agent(argv):
         assert getattr(loop, k) == jopts.get(opt), k
 
 
-def test_patterns_raise():
-    with pytest.raises(ValueError, match="--patterns.*pattern-gammas"):
-        CLI.main(["--mode", "gtp", "--patterns", "x.txt"], device="cpu")
-    with pytest.raises(ValueError, match="--gammas-policy-factor"):
-        Options().parse_args(["--gammas-policy-factor", "0.5"]).check_gtp_flags()
+def test_patterns_raise(tmp_path):
+    """The gtp mode reads both gammas flags; a patterns file that is not
+    there raises, in the JAX run_gtp too."""
+    from sayuri_tpu import __main__ as JCLI
+
+    Options().parse_args(["--patterns", "x.txt", "--gammas-policy-factor", "0.5"]
+                         ).check_gtp_flags()
+    missing = str(tmp_path / "x.txt")
+    with pytest.raises(FileNotFoundError):
+        JCLI.run_gtp(JOptions().parse_args(["--patterns", missing]))
+    with pytest.raises(FileNotFoundError):
+        CLI.main(["--mode", "gtp", "--patterns", missing], device="cpu")
 
 
 NOOP_FLAGS = [["--threads", "4"], ["--gpu", "0"], ["--gpu-waittime", "2"], ["--no-fp16"],
@@ -222,11 +230,9 @@ def test_other_commands_answer(tmp_path, weights):
     ]
     for line in script:
         ok, body = loop.execute(line)
-        if line.startswith("sayuri-setoption name gammas"):
-            assert not ok and "not supported" in body
-        else:
-            assert ok, (line, body)
+        assert ok, (line, body)
     assert loop.agent.search_cfg.nn_cache_size == 64
+    assert loop.agent.gammas_policy_factor == 0.5
     # the self-play probes, weightless (such a game ends by two passes)
     loop = GtpLoop(boardsize=5, komi=4.5, playouts=6, max_nodes=20, device="cpu")
     buf = tmp_path / "buf.txt"

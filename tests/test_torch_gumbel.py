@@ -114,7 +114,8 @@ def test_selection_noise_is_fresh_per_selection():
     def draws(seed, b=B, a=N * N + 1, tags=(0, 1, None)):
         tree = SimpleNamespace(prior=torch.zeros(b, 2, a),
                                gen=torch.Generator().manual_seed(seed))
-        return [SELECTION_GUMBEL(None, tree, t) for t in tags]
+        mcts = SimpleNamespace(cfg=SearchConfig())   # gumbel_per_selection on
+        return [SELECTION_GUMBEL(mcts, tree, t) for t in tags]
 
     first, again = draws(5), draws(5)
     for x, y in zip(first, again):

@@ -68,6 +68,12 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.parallel.mesh",
     "sayuri_tpu_torch.parallel.distributed",
     "sayuri_tpu_torch.parallel.dryrun",
+    "sayuri_tpu_torch.pattern",
+    "sayuri_tpu_torch.pattern.pattern",
+    "sayuri_tpu_torch.pattern.mm",
+    "sayuri_tpu_torch.pattern.gammas",
+    "sayuri_tpu_torch.pattern.gammas_device",
+    "sayuri_tpu_torch.tools.ab_match",
 ]
 
 CHECK = """

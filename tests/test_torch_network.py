@@ -4,6 +4,8 @@ channels). Network outputs agree within 1e-5, the bound
 tools/diff_raw_nn.py held the JAX net to; integer and plane outputs are
 exact."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,14 +34,23 @@ ATOL = 1e-5
 STACK = ("ResidualBlock", "ResidualBlock-SE")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_net_init(n, channels):
+    """(JAX net, its init compiled once) for a board width and width of
+    channels: flax's eager init compiles op by op, about 17 s the first
+    time in a process, where one jit takes about 5 s and a second call of
+    the same shapes none."""
+    net = JN.SayuriNet(JN.NetConfig(boardsize=n, residual_channels=channels, stack=STACK))
+    return net, jax.jit(lambda key, x: net.init(key, x, train=False))
+
+
 def seeded_variables(n=9, channels=16, seed=0):
     """flax variables whose kernels come from flax's seeded xavier init and
     whose biases, BN parameters and BN statistics are drawn from a numpy
     seed (init alone leaves BN at mean 0 / var 1, hiding the mapping)."""
-    cfg = JN.NetConfig(boardsize=n, residual_channels=channels, stack=STACK)
-    net = JN.SayuriNet(cfg)
+    net, init = _jax_net_init(n, channels)
     dummy = jnp.zeros((1, n, n, 43)).at[..., -1].set(1.0)
-    variables = net.init(jax.random.PRNGKey(seed), dummy, train=False)
+    variables = init(jax.random.PRNGKey(seed), dummy)
     rng = np.random.RandomState(seed)
 
     def draw(path, x):

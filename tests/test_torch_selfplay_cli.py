@@ -67,7 +67,7 @@ def test_unsupported_flags_and_modes_raise(tmp_path):
         CLI.main(["--mode", "selfplay", "--policy-temp", "0.5"], device="cpu")
     assert Options().parse_args(["--first-pass-bonus"]).search_config().first_pass_bonus
     with pytest.raises(ValueError, match="--patterns"):
-        CLI.main(["--mode", "gtp", "--patterns", "p.txt"], device="cpu")
+        CLI.main(["--mode", "selfplay", "--patterns", "p.txt"], device="cpu")
     with pytest.raises(ValueError, match="--num-games"):
         CLI.main(["--mode", "benchmark", "--num-games", "3"], device="cpu")
     with pytest.raises(SystemExit, match="unknown mode"):

@@ -10,8 +10,8 @@ seeded batches (7x7 buffer holding 5x5-7x7 boards, batch 8):
 - a non-finite loss raises FloatingPointError;
 - a checkpoint round trip restores every tensor and counter, and a resumed
   trainer's next step equals an uninterrupted one's;
-- the port's loader refuses the JAX package's checkpoint with a message
-  that names it, and reads its own.
+- the port's loader reads the JAX package's checkpoint (its net equal to
+  the JAX trainer's variables carried across) and its own.
 
 Bounds: loss parts within 1e-5 relative; parameters, statistics and SWA
 within 1e-5 absolute. One exception, under Adam only: the input conv's
@@ -188,8 +188,12 @@ def test_inference_loader_reads_port_ckpt_and_refuses_jax_ckpt(configs, tmp_path
     jt = JTrainer(jcfg, JTrainConfig(batch_size=8))
     jax_ckpt = str(tmp_path / "jax.ckpt")
     jt.save_checkpoint(jax_ckpt)
-    with pytest.raises(ValueError, match="JAX-package trainer checkpoint"):
-        load_checkpoint_for_inference(jax_ckpt)
+    jcfg_read, jnet = load_checkpoint_for_inference(jax_ckpt)
+    assert jcfg_read.stack == tcfg.stack and not jnet.training
+    want = port_state(tcfg, {"params": jt.unreplicated_params(),
+                             "batch_stats": jt.unreplicated_batch_stats()})
+    for k, v in jnet.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
     tt = Trainer(tcfg, TrainConfig(batch_size=8), device="cpu")
     tt.train_batch(*batch(4))

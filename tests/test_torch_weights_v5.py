@@ -5,7 +5,8 @@
   forward is within 1e-5 of the JAX net's on the original variables;
 - the port's export of the same weights is byte-identical to the JAX
   export (binary and text), so the JAX importer reads equal arrays;
-- a JAX-package trainer checkpoint (.ckpt) is refused with a clear error,
+- a JAX-package trainer checkpoint (.ckpt) whose msgpack is cut short is
+  refused with a clear error,
   a port checkpoint written before NetConfig had ``policy_head_kernel``
   loads with its default, and the port's layer plan equals the JAX one
   entry for entry for a net of every block family with the RepLK head
@@ -86,14 +87,16 @@ def test_port_roundtrip_gives_the_same_net(weights, tmp_path):
 
 
 def test_refuses_checkpoints_and_unported_blocks(tmp_path):
-    # a JAX-package trainer checkpoint: a pickle holding flax msgpack bytes
-    # (the port's own .ckpt is read: test_torch_train_pipeline.py)
+    # a JAX-package trainer checkpoint (a pickle holding flax msgpack bytes)
+    # whose msgpack is cut short is refused (a whole one is read:
+    # test_torch_ckpt_jax.py; the port's own .ckpt: test_torch_train_pipeline.py)
     import pickle
 
     ckpt = tmp_path / "trainer.ckpt"
     ckpt.write_bytes(pickle.dumps({"state": b"\x85", "net_cfg": {}, "train_cfg": {},
                                    "extra": {}}))
-    with pytest.raises(ValueError, match="ckpt"):
+    with pytest.raises(ValueError, match="trainer.ckpt: not a readable JAX-package trainer "
+                                         "checkpoint"):
         TW.load_checkpoint_for_inference(str(ckpt))
     # no block family or policy head is left unported: the layer plans of a
     # net of every family agree, entry for entry, names mapped to flax scopes

@@ -74,6 +74,16 @@ class Draws:
         mp.setattr(TC.MCTS, "_sample_dirichlet", lambda m, g, p: self.t_dirichlet(m, g, p))
 
 
+def install_one_draw(mp, table):
+    """Patch both packages' `_sample_gumbel` (the one draw a search of
+    gumbel_per_selection=False) through a pytest MonkeyPatch: lane b of
+    every search draws table[b] ([B, A] float32) on its legal moves."""
+    mp.setattr(JC.MCTS, "_sample_gumbel",
+               lambda m, rng, p: jnp.where(p > 0, jnp.asarray(table), -jnp.inf))
+    mp.setattr(TC.MCTS, "_sample_gumbel",
+               lambda m, gen, p: torch.where(p > 0, torch.from_numpy(table), -torch.inf))
+
+
 # the port's tree arrays (the JAX tree's parent_action, net_score, valid
 # and root_gumbel are written there but read by nothing of the search or
 # the actor at its default of fresh noise per selection)
