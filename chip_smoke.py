@@ -1200,6 +1200,9 @@ def run_blocks_phase(torch, np, dev, card, tdata, work, reset_counts, counts,
           f"  [{card}]")
     print(f"{MIX} search profile, stages (device ms, launches): "
           f"{ {k: (round(t, 3), c) for k, (t, c) in prof['stage_device_ms_launches'].items()} }; "
+          f"recorder's host ms of the unprofiled search "
+          f"{ {k: round(t, 3) for k, t in prof['stage_host_ms'].items()} }, "
+          f"{prof['descent_syncs_per_sim']:.2f} descent syncs a simulation; "
           f"top kernels {[(k[:60], round(t, 3), c) for k, t, c in prof['top_kernels_ms'][:8]]}")
     if not prof["depthwise_kernels_ms"]:
         raise RuntimeError(f"{MIX} profile: no kernel ran in a depthwise conv range")

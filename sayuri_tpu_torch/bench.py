@@ -102,7 +102,8 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import record_function
+
+from sayuri_tpu_torch import telemetry
 
 METRIC = "mcts_playouts_per_s_19x19_b6c96"     # "b6c96" stands for the net's name
 ENV_METRIC = "env_steps_per_s_19x19"
@@ -170,7 +171,7 @@ def _searcher(mcts, states, playouts):
     from sayuri_tpu_torch.game.ladder import ladder_planes_batch
 
     def search():
-        with record_function("mcts.ladders"):
+        with telemetry.span("mcts.ladders"):
             ctx = {"ladders": ladder_planes_batch(states.stones, states.size,
                                                   states.ko)}
         return mcts.run(mcts.init_tree(states, ctx=ctx), playouts, ctx=ctx)
@@ -564,8 +565,9 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     device's busy time (union of kernel intervals) and its idle share of the
     unprofiled wall; kernel launches and device ms per `mcts.*` stage (a
     kernel belongs to the stage whose device-side range holds its start);
-    the host ms of each stage under the profiler (inflated by the
-    profiler's per-op cost); the `top` kernels by device time; and, by
+    the recorder's host ms of each span of the unprofiled search (the
+    `mcts.*` stages, `mcts.descent.sync`, the `evaluate.*` sub-stages) and
+    its descent syncs a simulation; the `top` kernels by device time; and, by
     kernel name, the device ms and launches of the depthwise conv blocks'
     convolutions (their merged kernel and the grouped conv, in a
     DW_RANGE range during the profiled search only)."""
@@ -584,10 +586,11 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     search()
     _sync(device)
     wall = time.monotonic() - t0
+    rec = telemetry.last(profiled=False)
     conv2d = DepthwiseConvBlock.conv2d
 
     def ranged(self, x):
-        with record_function(DW_RANGE):
+        with telemetry.span(DW_RANGE):
             return conv2d(self, x)
 
     DepthwiseConvBlock.conv2d = ranged
@@ -604,13 +607,16 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
 
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    # the record_function ranges appear on the device timeline as well
+    # the spans' profiler ranges appear on the device timeline as well
 
     def device_ranges(name):
         return sorted((e for e in events if e.device_type == cuda and e.name.startswith(name)),
                       key=lambda e: e.time_range.start)
 
-    ranges, dw_ranges = device_ranges("mcts."), device_ranges(DW_RANGE)
+    # the descent's sync span nests in `mcts.descent`: a stage is the one
+    # range holding a kernel's start, so the stages leave it out
+    ranges = [r for r in device_ranges("mcts.") if r.name != "mcts.descent.sync"]
+    dw_ranges = device_ranges(DW_RANGE)
     kernels, busy = _device_kernels(events, skip=("mcts.", DW_RANGE))
     starts = [r.time_range.start for r in ranges]
     dw_starts = [r.time_range.start for r in dw_ranges]
@@ -629,10 +635,6 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
         if i >= 0 and s < dw_ranges[i].time_range.end:
             total, count = per_dw.get(e.name, (0.0, 0))
             per_dw[e.name] = (total + us, count + 1)
-    host = {}
-    for e in events:
-        if e.device_type != cuda and e.name.startswith("mcts."):
-            host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     dw_ms = sum(us for us, _ in per_dw.values()) / 1e3
     return {
         "net": net,
@@ -645,7 +647,8 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
         "stage_device_ms_launches": {
             k: (us / 1e3, c) for k, (us, c) in sorted(per_stage.items())
         },
-        "stage_host_ms_profiled": host,
+        "stage_host_ms": {k: rec.ms(k) for k in sorted(rec.ns)},
+        "descent_syncs_per_sim": rec.counter("descent_syncs") / rec.sims,
         "top_kernels_ms": [
             (name, us / 1e3, count) for name, (us, count) in
             sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]

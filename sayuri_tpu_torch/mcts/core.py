@@ -41,8 +41,8 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from sayuri_tpu_torch import telemetry as T
 from sayuri_tpu_torch.game.state import GoEnv, GoState
 
 
@@ -454,20 +454,21 @@ class MCTS:
         """One playout per tree; updates `tree` in place and returns it.
         `sim_idx` tags the simulation (its Gumbel draw); `active` ([B]
         bool, all when None): lanes past their playout budget are frozen.
-        Each stage is a named profiler range (`mcts.*`)."""
+        Each stage is a span of the recorder (`telemetry`), a profiler
+        range of the same name (`mcts.*`) while the profiler is on."""
         from sayuri_tpu_torch.mcts import nncache as NC
 
         b_idx = torch.arange(tree.stats.shape[0], device=tree.stats.device)
         if active is None:
             active = torch.ones_like(tree.terminal[:, 0])
-        with record_function("mcts.descent"):
+        with T.span("mcts.descent"):
             path, leaf_parent, leaf_action = self._descend(tree, b_idx, sim_idx)
-        with record_function("mcts.step_analysis"):
+        with T.span("mcts.step_analysis"):
             parent_states = tree.states.map(lambda x: x[b_idx, leaf_parent])
             child_states, analysis = self.env.step_batch_with_analysis(
                 parent_states, leaf_action
             )
-        with record_function("mcts.evaluate"):
+        with T.span("mcts.evaluate"):
             eval_ctx = dict(ctx or {}, analysis=analysis)
             if tree.cache is not None:
                 evals, tree.cache = NC.cached_eval(
@@ -477,7 +478,7 @@ class MCTS:
             else:
                 evals = self.eval_fn(child_states, eval_ctx)
             leaf = self._leaf_values(child_states, analysis, evals)
-        with record_function("mcts.expand_backup"):
+        with T.span("mcts.expand_backup"):
             if self.cfg.first_pass_bonus:
                 # the bonus reads the root ownership before this backup
                 # updates it
@@ -505,7 +506,16 @@ class MCTS:
         cur = torch.where(done, 0, child0.clamp(min=0))
         root_color = tree.states.to_move[:, 0].to(torch.int64)
         depth = 1
-        while depth < cfg.max_depth and bool((~done).any()):
+        syncs = 0
+        while depth < cfg.max_depth:
+            # the descent's one host sync a level; the span holds the wait
+            # for the card and the copy back, no launch
+            syncs += 1
+            pending = (~done).any()
+            with T.span("mcts.descent.sync"):
+                more = bool(pending)
+            if not more:
+                break
             # to_move alternates every ply (pass included)
             color = root_color ^ (depth & 1)
             scores = self._puct_scores(tree, cur, False, color=color)
@@ -518,6 +528,7 @@ class MCTS:
             cur = torch.where(new_done, cur, child.clamp(min=0))
             done = new_done
             depth += 1
+        T.count("descent_syncs", syncs)
 
         # leaf edge = last recorded (node, action) per lane
         last_d = ((path >= 0).sum(-1) - 1).clamp(min=0)
@@ -685,10 +696,21 @@ class MCTS:
     def run(self, tree: Tree, num_sims: int, budget=None, ctx=None) -> Tree:
         """Run `num_sims` lockstep simulations. `budget` ([B] int) caps the
         playouts of each lane: simulation i runs on the lanes with i <
-        budget (a device compare, no host sync)."""
-        for i in range(num_sims):
-            active = None if budget is None else i < budget
-            tree = self.simulate(tree, i, active, ctx)
+        budget (a device compare, no host sync). The call is one run
+        record of the recorder (`telemetry`), which counts B x `num_sims`
+        lane-simulations and, as a device scalar, those inside their
+        budget on a root that is not terminal."""
+        with T.run(num_sims):
+            root_term = tree.terminal[:, 0]
+            T.count("lane_sims", root_term.shape[0] * num_sims)
+            if budget is None:
+                T.count("lane_sims_active", (~root_term).sum() * num_sims)
+            else:
+                T.count("lane_sims_active",
+                        torch.where(root_term, 0, budget.clamp(0, num_sims)).sum())
+            for i in range(num_sims):
+                active = None if budget is None else i < budget
+                tree = self.simulate(tree, i, active, ctx)
         return tree
 
     # ------------------------------------------------------------------

@@ -40,6 +40,7 @@ import dataclasses
 
 import torch
 
+from sayuri_tpu_torch import telemetry as T
 from sayuri_tpu_torch.game import board as B
 
 _M32 = 0xFFFFFFFF
@@ -190,38 +191,43 @@ def cached_eval(cache: NNCache, eval_fn, states, ctx, live=None):
 
     `live` ([B] bool): lanes whose output is consumed (active and not
     terminal); the others are left out of the counters and of the insert.
+    The cache's own work is the recorder's `evaluate.cache` span (host
+    time only, as the evaluator's sub-stages).
     """
     from sayuri_tpu_torch.mcts.core import NetEvals
 
     b = states.stones.shape[0]
     dev = states.stones.device
-    if live is None:
-        live = torch.ones((b,), dtype=torch.bool, device=dev)
+    with T.span("evaluate.cache", profiled=False):
+        if live is None:
+            live = torch.ones((b,), dtype=torch.bool, device=dev)
 
-    keys = state_keys(states)
-    hit, cached, probe_aux = probe(cache, keys)
-    hit = hit & live
-    miss = live & ~hit
+        keys = state_keys(states)
+        hit, cached, probe_aux = probe(cache, keys)
+        hit = hit & live
+        miss = live & ~hit
 
-    # cross-lane dedup: the first missing lane of each key represents it
-    eq = (keys[:, None, :] == keys[None, :, :]).all(-1)        # [B, B]
-    rep = (eq & miss[None, :]).to(torch.int8).argmax(1)
-    lane = torch.arange(b, device=dev)
-    need = miss & (rep == lane)
-    dup = miss & (rep != lane)
+        # cross-lane dedup: the first missing lane of each key represents it
+        eq = (keys[:, None, :] == keys[None, :, :]).all(-1)        # [B, B]
+        rep = (eq & miss[None, :]).to(torch.int8).argmax(1)
+        lane = torch.arange(b, device=dev)
+        need = miss & (rep == lane)
+        dup = miss & (rep != lane)
 
-    evals = NetEvals(*(x.float() for x in eval_fn(states, ctx)))
-    # duplicates copy their representative's fresh output, hits the cache's
-    merged = NetEvals(*(
-        torch.where(hit.view((b,) + (1,) * (x.ndim - 1)), c,
-                    torch.where(dup.view((b,) + (1,) * (x.ndim - 1)), x[rep], x))
-        for x, c in zip(evals, cached)
-    ))
-    cache = insert(cache, keys, merged, need, probe_aux)
-    cache = dataclasses.replace(
-        cache,
-        queries=cache.queries + live.to(torch.int64),
-        hits=cache.hits + hit.to(torch.int64),
-        dups=cache.dups + dup.to(torch.int64),
-    )
+    evals = eval_fn(states, ctx)
+    with T.span("evaluate.cache", profiled=False):
+        evals = NetEvals(*(x.float() for x in evals))
+        # duplicates copy their representative's fresh output, hits the cache's
+        merged = NetEvals(*(
+            torch.where(hit.view((b,) + (1,) * (x.ndim - 1)), c,
+                        torch.where(dup.view((b,) + (1,) * (x.ndim - 1)), x[rep], x))
+            for x, c in zip(evals, cached)
+        ))
+        cache = insert(cache, keys, merged, need, probe_aux)
+        cache = dataclasses.replace(
+            cache,
+            queries=cache.queries + live.to(torch.int64),
+            hits=cache.hits + hit.to(torch.int64),
+            dups=cache.dups + dup.to(torch.int64),
+        )
     return merged, cache

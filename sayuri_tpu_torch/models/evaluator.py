@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from sayuri_tpu_torch import telemetry as T
 from sayuri_tpu_torch.game.ladder import ladder_planes_batch
 from sayuri_tpu_torch.game.state import GoEnv, GoState
 from sayuri_tpu_torch.mcts.core import NetEvals
@@ -100,83 +101,101 @@ def make_eval_fn(
         raise ValueError(f"policy_head {policy_head!r}: use 'prob' or 'optimistic_prob'")
     n = env.n
 
+    # the recorder's sub-stages of the search's evaluate stage: host time
+    # only, since a profiler range nested in `mcts.evaluate` would take its
+    # device ops from that range in port_bench's trace reading
+    def encoding():
+        return T.span("evaluate.encode", profiled=False)
+
+    def posting():
+        return T.span("evaluate.post", profiled=False)
+
     @torch.no_grad()
     def eval_fn(states: GoState, ctx=None) -> NetEvals:
         b = states.stones.shape[0]
         dev = states.stones.device
-        if ladder_mode == "full":
-            lp = ladder_planes_batch(states.stones, states.size, states.ko)
-        elif ladder_mode == "root" and ctx is not None and "ladders" in ctx:
-            lp = ctx["ladders"]
-        else:
-            lp = torch.zeros((b, n, n, 4), device=dev)
+        with encoding():
+            if ladder_mode == "full":
+                lp = ladder_planes_batch(states.stones, states.size, states.ko)
+            elif ladder_mode == "root" and ctx is not None and "ladders" in ctx:
+                lp = ctx["ladders"]
+            else:
+                lp = torch.zeros((b, n, n, 4), device=dev)
 
-        if ctx is not None and "analysis" in ctx:
-            analysis = ctx["analysis"]
-        else:
-            analysis = TA.board_analysis(states.stones, states.size, states.ko,
-                                      states.to_move)
-        planes = encode(env, states, lp, analysis["libs"], analysis["safe"],
-                        analysis["score_ownership"])
-        board_legal = analysis["legal"] & ~states.terminated[:, None]
-        legal = torch.cat([board_legal, torch.ones_like(board_legal[:, :1])], -1)
-        is_black = states.to_move == 0
+            if ctx is not None and "analysis" in ctx:
+                analysis = ctx["analysis"]
+            else:
+                analysis = TA.board_analysis(states.stones, states.size, states.ko,
+                                          states.to_move)
+            planes = encode(env, states, lp, analysis["libs"], analysis["safe"],
+                            analysis["score_ownership"])
+            board_legal = analysis["legal"] & ~states.terminated[:, None]
+            legal = torch.cat([board_legal, torch.ones_like(board_legal[:, :1])], -1)
+            is_black = states.to_move == 0
 
         def forward(x):
-            with torch.autocast(dev.type, dtype=compute_dtype,
-                                enabled=compute_dtype != torch.float32):
+            with T.span("evaluate.forward", profiled=False), torch.autocast(
+                    dev.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32):
                 return net(x)
 
         def postprocess(out, inverse):
             """Net outputs -> NetEvals in black's view; `inverse` maps a
             [B, A] or [B, HW] spatial output back to the board frame."""
-            logits = torch.where(legal, inverse(out[policy_head].float()) / policy_temp,
-                                 -torch.inf)
-            priors = torch.where(legal, torch.softmax(logits, -1), 0.0)
-            wdl = torch.softmax(out["wdl"].float(), -1)
-            if use_stm_winrate:
-                stm_wl = (out["q_vals"][:, 0].float() + 1.0) / 2.0
-            else:
-                stm_wl = (wdl[:, 0] - wdl[:, 2] + 1.0) / 2.0
-            stm_score = out["scores"][:, 0].float()
-            return NetEvals(
-                priors=priors,
-                black_wl=torch.where(is_black, stm_wl, 1.0 - stm_wl),
-                draw=wdl[:, 1],
-                black_score=torch.where(is_black, stm_score, -stm_score),
-                black_ownership=(inverse(out["ownership"].float())
-                                 * torch.where(is_black, 1.0, -1.0)[:, None]),
-            )
+            with posting():
+                logits = torch.where(legal, inverse(out[policy_head].float()) / policy_temp,
+                                     -torch.inf)
+                priors = torch.where(legal, torch.softmax(logits, -1), 0.0)
+                wdl = torch.softmax(out["wdl"].float(), -1)
+                if use_stm_winrate:
+                    stm_wl = (out["q_vals"][:, 0].float() + 1.0) / 2.0
+                else:
+                    stm_wl = (wdl[:, 0] - wdl[:, 2] + 1.0) / 2.0
+                stm_score = out["scores"][:, 0].float()
+                return NetEvals(
+                    priors=priors,
+                    black_wl=torch.where(is_black, stm_wl, 1.0 - stm_wl),
+                    draw=wdl[:, 1],
+                    black_score=torch.where(is_black, stm_score, -stm_score),
+                    black_ownership=(inverse(out["ownership"].float())
+                                     * torch.where(is_black, 1.0, -1.0)[:, None]),
+                )
 
         if symmetry == "average":
             acc = None
             for s in range(8):
-                ev = postprocess(forward(S.transform_planes(planes, s)),
+                with encoding():
+                    x = S.transform_planes(planes, s)
+                ev = postprocess(forward(x),
                                  lambda p, s=s: S.inverse_transform_policy(p, s, n))
                 acc = ev if acc is None else NetEvals(*(a + e for a, e in zip(acc, ev)))
-            acc = NetEvals(*(a / 8.0 for a in acc))
-            pri = torch.where(legal, acc.priors, 0.0)
-            evals = acc._replace(priors=pri / pri.sum(-1, keepdim=True).clamp(min=1e-12))
+            with posting():
+                acc = NetEvals(*(a / 8.0 for a in acc))
+                pri = torch.where(legal, acc.priors, 0.0)
+                evals = acc._replace(priors=pri / pri.sum(-1, keepdim=True).clamp(min=1e-12))
         elif symmetry == "random":
-            if ctx is not None and "sym" in ctx:
-                syms = ctx["sym"]
-            else:
-                syms = S.random_symmetries(states, sym_seed)
-            evals = postprocess(forward(S.transform_planes_batch(planes, syms)),
+            with encoding():
+                if ctx is not None and "sym" in ctx:
+                    syms = ctx["sym"]
+                else:
+                    syms = S.random_symmetries(states, sym_seed)
+                x = S.transform_planes_batch(planes, syms)
+            evals = postprocess(forward(x),
                                 lambda p: S.inverse_transform_policy_batch(p, syms, n))
         elif symmetry:
-            evals = postprocess(forward(S.transform_planes(planes, symmetry)),
-                                lambda p: S.inverse_transform_policy(p, symmetry, n))
+            with encoding():
+                x = S.transform_planes(planes, symmetry)
+            evals = postprocess(forward(x), lambda p: S.inverse_transform_policy(p, symmetry, n))
         else:
             evals = postprocess(forward(planes), lambda p: p)
-        if gammas is not None:
-            from sayuri_tpu_torch.pattern import gammas_device as GD
+        with posting():
+            if gammas is not None:
+                from sayuri_tpu_torch.pattern import gammas_device as GD
 
-            evals = GD.apply_to_evals(gammas[0], gammas[1], states, evals, legal,
-                                      libs=analysis["libs"])
-        if suppress_pass_factor > 0.0:
-            evals = evals._replace(priors=suppress_pass(evals.priors, legal, states.size,
-                                                        suppress_pass_factor))
+                evals = GD.apply_to_evals(gammas[0], gammas[1], states, evals, legal,
+                                          libs=analysis["libs"])
+            if suppress_pass_factor > 0.0:
+                evals = evals._replace(priors=suppress_pass(evals.priors, legal, states.size,
+                                                            suppress_pass_factor))
         return evals
 
     return eval_fn

@@ -97,7 +97,7 @@ def test_two_process_cpu_distributed(tmp_path):
     outs = []
     for p in procs:
         try:
-            out, _ = p.communicate(timeout=180)
+            out, _ = p.communicate(timeout=90)
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()

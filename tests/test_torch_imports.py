@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "sayuri_tpu_torch.game.sgf",
     "sayuri_tpu_torch.mcts.gumbel",
     "sayuri_tpu_torch.mcts.nncache",
+    "sayuri_tpu_torch.telemetry",
     "sayuri_tpu_torch.selfplay.actor",
     "sayuri_tpu_torch.selfplay.data",
     "sayuri_tpu_torch.selfplay.pipe",
@@ -117,7 +118,7 @@ def _env():
 def import_results():
     res = subprocess.run([sys.executable, "-c", CHECK, json.dumps(SLICE_MODULES)],
                          capture_output=True, text=True, env=_env(), cwd=ROOT,
-                         timeout=300)
+                         timeout=120)
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
     assert res.returncode == 0 and lines, res.stdout + res.stderr
     return json.loads(lines[-1][len("RESULT "):])
