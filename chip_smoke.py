@@ -1219,6 +1219,221 @@ GROUP_KERNELS = ("step_and_analyze", "board_analysis", "ladder_prep", "run_greed
                  "run_chases", "flood", "chain_labels")
 
 
+# phase 19: the two benchmark cells' nets (bench.NETS), batches and trunk
+# channels
+EPI_SHAPES = (("b15c192", 256, 192), ("b6c96-h24", 1024, 96))
+EPI_SEARCH_PLAYOUTS = 96
+
+
+def epilogue_inputs(torch, dev, b, c, seed):
+    """A conv output (bf16 NHWC), its block's input, the board mask
+    (19x19 boards, a 9x9 one in every seventh lane) and the planes it sits
+    in, SE gates (bf16) and a MaskedBatchNorm with drawn statistics, for
+    the epilogue at batch `b` and `c` channels."""
+    from sayuri_tpu_torch.models.network import MaskedBatchNorm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.ones(b, 19, 19, device=dev)
+    m[::7] = 0.0
+    m[::7, :9, :9] = 1.0
+    planes = torch.zeros(b, 19, 19, 43, device=dev)
+    planes[..., 42] = m
+    bn = MaskedBatchNorm(c, True).to(dev).eval()
+    with torch.no_grad():
+        bn.mean.normal_(0.0, 0.1, generator=g)
+        bn.var.uniform_(0.5, 2.0, generator=g)
+        bn.beta.normal_(0.0, 0.1, generator=g)
+        bn.gamma.uniform_(0.5, 1.5, generator=g)
+    return {
+        "x": torch.randn(b, 19, 19, c, device=dev, generator=g).to(torch.bfloat16),
+        "skip": torch.randn(b, 19, 19, c, device=dev, generator=g) * m[..., None],
+        "m": m,
+        "mask": planes.permute(0, 3, 1, 2)[:, 42:],
+        "se": torch.randn(b, 2 * c, device=dev, generator=g).to(torch.bfloat16),
+        "bn": bn,
+    }
+
+
+def epilogue_forms(torch, EP, N, t):
+    """name -> (kernel call, plain twin call, today's ATen chain): a
+    block tail without SE (bf16 conv output, folded batch norm, skip, mish;
+    float32 and bf16 out), a block's first conv (bf16 out only) and the SE
+    pass (the float32 batch-norm output, bf16 gates, skip, mish). Each call
+    returns (float32 or None, bf16)."""
+    act = N.act_fn("mish")
+    bn, mask = t["bn"], t["mask"]
+    scale, bias = bn.folded()
+    nchw = lambda u: u.permute(0, 3, 1, 2)
+    y32 = EP.epilogue_plain(t["x"], t["m"], scale, bias)[0]
+    kw = {
+        "tail": (t["x"], dict(scale=scale, bias=bias, skip=t["skip"], act="mish",
+                              out_lo=torch.bfloat16)),
+        "conv": (t["x"], dict(scale=scale, bias=bias, act="mish", out_f32=False,
+                              out_lo=torch.bfloat16)),
+        "se": (y32, dict(se=t["se"], skip=t["skip"], act="mish", out_lo=torch.bfloat16)),
+    }
+
+    def chain(name):
+        def run():
+            if name == "se":
+                gm, bt = t["se"].chunk(2, dim=1)
+                out = torch.sigmoid(gm)[:, :, None, None] * nchw(y32) + bt[:, :, None, None]
+                out = act(out * mask + nchw(t["skip"]))
+            else:
+                out = bn(nchw(t["x"]) * mask, mask)
+                out = act(out + nchw(t["skip"])) if name == "tail" else act(out)
+            return (None if name == "conv" else out), out.to(torch.bfloat16)
+        return run
+
+    return {name: ((lambda x=x, k=k: EP.epilogue(x, t["m"], **k)),
+                   (lambda x=x, k=k: EP.epilogue_plain(x, t["m"], **k)),
+                   chain(name))
+            for name, (x, k) in kw.items()}
+
+
+def max_diff(torch, got, want):
+    """(max abs difference, share of equal elements) over the pairs of
+    outputs that are not None."""
+    err, same, total = 0.0, 0, 0
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            continue
+        if a.shape != b.shape:     # today's chain is NCHW
+            b = b.permute(0, 2, 3, 1)
+        d = (a.float() - b.float()).abs()
+        err = max(err, d.max().item())
+        same += int((d == 0).sum())
+        total += d.numel()
+    return err, same / max(total, 1)
+
+
+def run_epilogue_phase(torch, dev):
+    """Phase 19: the eval epilogue kernel (csrc/epilogue.cu) on the card.
+    (a) Built, its ptxas resources printed. (b) At both cells' shapes
+    (b15c192 B=256 x 192 channels, b6c96 B=1024 x 96): every activation,
+    bf16 and float32 input, with SE gates and the skip, against the plain
+    twin on the card; then three forms (a block tail, a first conv, the
+    SE pass) against the twin and against today's ATen chain (the modules'
+    eval formulas, NCHW, the cast to bf16 the next conv's autocast did),
+    each timed (kernel, twin, chain as library_ms) beside its byte bound.
+    (c) Each cell's net (random weights, drawn statistics), bf16 autocast:
+    the eval forward through the kernel against the modules' forward, the
+    heads' widest gaps; the card's kernels a forward (profiler) and each forward
+    timed. (d) One b15c192 search of 256 empty roots x 96 playouts after a
+    warm-up one: the kernel's launches and the recorder's counters of the
+    search. Returns the kernels line's row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sayuri_tpu_torch import bench, telemetry
+    from sayuri_tpu_torch.models import network as N
+    from sayuri_tpu_torch.ops import build
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    EP._lib()
+    print(f"epilogue.cu built in {build.BUILD_SECONDS['epilogue']:.2f} s")
+    for line in (build.BUILD_DIR / "libepilogue.ptxas.txt").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            print("    " + line.strip())
+    by_shape, worst = [], 0.0
+    row = None
+    torch.set_grad_enabled(False)
+    for cell, b, c in EPI_SHAPES:
+        t = epilogue_inputs(torch, dev, b, c, seed=c)
+        scale, bias = t["bn"].folded()
+        exact = {}
+        for act in EP.ACTS:
+            for dtype in (torch.bfloat16, torch.float32):
+                kw = dict(se=t["se"] if dtype == torch.bfloat16 else t["se"].float(),
+                          skip=t["skip"], act=act, out_lo=torch.bfloat16)
+                x = t["x"].to(dtype)
+                got = EP.epilogue(x, t["m"], scale, bias, **kw)
+                want = EP.epilogue_plain(x, t["m"], scale, bias, **kw)
+                err, same = max_diff(torch, got, want)
+                worst = max(worst, err)
+                exact[f"{act}/{str(dtype)[6:]}"] = round(same, 6)
+                # float32 within a few ulps; bf16 within one rounding step
+                for a, w, rtol in zip(got, want, (1e-6, 2.0 ** -7)):
+                    torch.testing.assert_close(a, w, rtol=rtol, atol=1e-6,
+                                               msg=f"epilogue {cell} {act} {dtype}")
+        print(f"{cell}: kernel vs twin, 8 activations x bf16/f32 input: widest gap "
+              f"{worst:.3g}; share of equal elements {json.dumps(exact)}")
+        for name, (kern, plain, chain) in epilogue_forms(torch, EP, N, t).items():
+            out = kern()
+            err_twin, same_twin = max_diff(torch, out, plain())
+            err_lib, same_lib = max_diff(torch, out, chain())
+            nbytes = tensor_bytes(torch, out) + t["m"].numel() * 4 + 2 * 4 * c + (
+                t["x"].numel() * (4 if name == "se" else 2)
+                + (0 if name == "conv" else t["skip"].numel() * 4)
+                + (tensor_bytes(torch, t["se"]) if name == "se" else 0))
+            bound_ms, bound_by = bound(nbytes, 0)
+            ms = time_card(torch, kern, ())
+            rec = {"cell": cell, "form": name, "batch": b, "channels": c, "ms": ms,
+                   "plain_ms": time_card(torch, plain, ()),
+                   "library_ms": time_card(torch, chain, ()), "bound_ms": bound_ms,
+                   "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                   "max_abs_err": err_twin, "equal_share": same_twin,
+                   "library_max_abs_err": err_lib, "library_equal_share": same_lib}
+            by_shape.append(rec)
+            print(json.dumps(rec))
+            if row is None:
+                row = dict(rec)
+        del t
+    torch.set_grad_enabled(True)
+    # (c) whole forwards
+    forwards = {}
+    for cell, b, _ in EPI_SHAPES:
+        net = N.SayuriNet(bench.net_config(cell)).init_random(0).to(dev).eval()
+        g = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for name, buf in net.named_buffers():
+                (buf.uniform_(0.5, 2.0, generator=g) if name.endswith("var")
+                 else buf.normal_(0.0, 0.1, generator=g))
+        t = epilogue_inputs(torch, dev, b, 8, seed=2)
+        planes = (torch.rand(b, 19, 19, 43, device=dev, generator=g) > 0.7).float()
+        planes = planes * t["m"][..., None]
+        planes[..., 42] = t["m"]
+        del t
+
+        def fwd(fn):
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return fn(planes)
+
+        fused, ref = fwd(net), fwd(net.forward_modules)
+        gaps = {"modules": {k: (fused[k] - ref[k]).abs().max().item() for k in fused}}
+        counts = {}
+        for name, fn in (("fused", net), ("modules", net.forward_modules)):
+            fwd(fn)
+            EP.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fwd(fn)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            counts[name] = {"kernels": len(kernels), "epilogues": EP.LAUNCHES["epilogue"],
+                            "ms": time_card(torch, lambda fn=fn: fwd(fn), (), iters=10)}
+        forwards[cell] = {"batch": b, "gaps": gaps, "per_forward": counts}
+        print(json.dumps({"forward": cell, **forwards[cell]}))
+        del net
+    # (d) one search
+    EP.reset_launch_counts()
+    res = bench.bench_playouts(SLICE_BATCH, EPI_SEARCH_PLAYOUTS, iters=1, net="b15c192")
+    rec = telemetry.last(profiled=False)
+    search = {"launches": EP.LAUNCHES["epilogue"] / res["searches"],
+              "rate": res["rate"], "sims": rec.sims,
+              **{k: rec.counter(k) for k in ("net_conv_blocks", "net_epilogues_fused",
+                                             "net_weight_refolds")}}
+    print(json.dumps({"search": "b15c192", **search}))
+    if search["net_epilogues_fused"] != search["net_conv_blocks"] or search["net_weight_refolds"]:
+        raise RuntimeError(f"epilogue: the search's conv blocks not all fused: {search}")
+    row.update({"name": "epilogue", "route": "cuda", "source":
+                "sayuri_tpu_torch/csrc/epilogue.cu", "replaces": None,
+                "launches": search["launches"],
+                "path": f"b15c192 search B={SLICE_BATCH} x {EPI_SEARCH_PLAYOUTS}",
+                "max_abs_err": worst, "plain_device": "cuda", "by_shape": by_shape,
+                "forwards": forwards, "search": search})
+    return row
+
+
 def free_port():
     import socket
 
@@ -2603,6 +2818,11 @@ def main():
             torch, np, dev, card, s19, cpu_planes["random"], wfile, out_dir / "sgf", work,
             reset_counts, counts, need, gtp_genmove_s)
         phase_done("gammas")
+
+        # ---- 19. the eval epilogue ----
+        phase("epilogue")
+        epilogue_row = run_epilogue_phase(torch, dev)
+        phase_done("epilogue")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2647,6 +2867,7 @@ def main():
             "plain_device": r.get("plain_device", "cuda"),
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {}),
         })
+    kernels.append(epilogue_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,7 +13,10 @@ prints ONE JSON line with the rate, the device name and its power limit.
 train`` from NETS: ``b6c96`` (the default: NetConfig's RL net, residual
 blocks) or ``b6c96-mix`` (the same width and depth with one block of each
 family, bottleneck, nested bottleneck, mixer V1 and V2 and residual, and
-the RepLK policy head); the metric's name ends in the net's.
+the RepLK policy head) or ``b15c192`` (the benchmark's larger net: 15
+residual blocks of 192 channels, SE on every third, 24-channel heads,
+mish) or ``b6c96-h24`` (the benchmark's b6c96: 24-channel heads, mish);
+the metric's name ends in the net's.
 
     python -m sayuri_tpu_torch.bench deep [batch]
     python -m sayuri_tpu_torch.bench cached [batch]
@@ -116,12 +119,17 @@ LOADER_SIDE_STEPS = 20          # the loader alone, and fed at FAST_SWITCH_S
 FAST_SWITCH_S = 0.0005          # a tenth of CPython's default switch interval
 _M32 = 0xFFFFFFFF
 # the nets --net picks: NetConfig fields over its defaults (19x19, 96
-# channels, 32-channel heads, relu)
+# channels, 32-channel heads, relu); b15c192 and b6c96-h24 as
+# port_bench/configs has b15c192 and b6c96
 NETS = {
     "b6c96": {},
     "b6c96-mix": dict(stack=("BottleneckBlock", "NestedBottleneckBlock-SE", "MixerBlock",
                              "MixerBlockV2-SE", "ResidualBlock", "ResidualBlock-SE"),
                       policy_head_type="RepLK"),
+    "b15c192": dict(residual_channels=192,
+                    stack=("ResidualBlock", "ResidualBlock", "ResidualBlock-SE") * 5,
+                    policy_head_channels=24, value_head_channels=24, activation="mish"),
+    "b6c96-h24": dict(policy_head_channels=24, value_head_channels=24, activation="mish"),
 }
 
 
@@ -589,9 +597,9 @@ def profile_playouts(batch: int = 256, playouts: int = 96, device="cuda",
     rec = telemetry.last(profiled=False)
     conv2d = DepthwiseConvBlock.conv2d
 
-    def ranged(self, x):
+    def ranged(self, *args):
         with telemetry.span(DW_RANGE):
-            return conv2d(self, x)
+            return conv2d(self, *args)
 
     DepthwiseConvBlock.conv2d = ranged
     try:

@@ -35,6 +35,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <ucontext.h>
 #include <vector>
@@ -414,3 +415,16 @@ inline unsigned __brev(unsigned x) {
   for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
   return r;
 }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+// g++ in ISO C++ mode does not contract a * b + c into an fma
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }

@@ -20,9 +20,27 @@ sayuri_tpu.models.network).
   errors(2), plus tanh ownership.
 
 Convolutions run through cuDNN (``F.conv2d``, grouped for the depthwise
-ones) in NCHW; the public call
-takes NHWC planes like the JAX package. For bf16, wrap the call in
-``torch.autocast``.
+ones); the public call takes NHWC planes like the JAX package. For bf16,
+wrap the call in ``torch.autocast``.
+
+Two forwards share the modules:
+- ``train()``: each module's ``forward`` (NCHW views of the planes), the
+  batch norm as masked batch renorm;
+- ``eval()``: ``infer`` on NHWC tensors end to end. The weights come from
+  an inference cache on each module (each conv weight in the compute dtype
+  and channels-last, the depthwise blocks' merged kernel, the batch norms'
+  folded float32 scale and bias, the dense layers' weights), rebuilt when a
+  parameter or buffer is replaced or changed in place (its data_ptr or
+  _version). After each conv one epilogue (``ops/epilogue.py``) applies the
+  mask, the folded batch norm, the SE scale, the skip and the activation in
+  float32, and writes the float32 residual stream and the compute-dtype
+  copy the next conv reads, in one pass: csrc/epilogue.cu's kernel on
+  CUDA, the same formulas in PyTorch on the CPU. It runs with autograd
+  off; a forward with autograd on, in eval() too, takes the modules'
+  forward (``forward_modules``), the one that passes gradients. The
+  recorder counts the conv blocks of eval forwards (``net_conv_blocks``),
+  those whose epilogue took the kernel (``net_epilogues_fused``) and the
+  cache's rebuilds (``net_weight_refolds``).
 """
 
 from __future__ import annotations
@@ -34,6 +52,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sayuri_tpu_torch import telemetry as T
+from sayuri_tpu_torch.ops import epilogue as E
 
 CRAZY_NEGATIVE_VALUE = -5000.0
 B_AVG = (19 + 9) / 2
@@ -70,20 +91,109 @@ class NetConfig:
     policy_outs: int = 5
 
 
-_ACTS = {
-    "identity": lambda x: x,
-    "relu": F.relu,
-    "elu": F.elu,
-    "selu": F.selu,
-    "gelu": F.gelu,
-    "mish": F.mish,
-    "swish": F.silu,
-    "hardswish": F.hardswish,
-}
+_ACTS = E.ACT_FNS
 
 
 def act_fn(name: str):
     return _ACTS[name]
+
+
+def _state_slots(module):
+    """(dict, name) of every parameter and buffer of `module` and its
+    submodules, listed once: the cache key reads the tensors through them,
+    so that a replaced tensor is seen."""
+    slots = module.__dict__.get("_state_slots")
+    if slots is None:
+        mods = list(module.modules())
+        slots = [(m._parameters, n) for m in mods for n in m._parameters] + \
+                [(m._buffers, n) for m in mods for n in m._buffers]
+        module.__dict__["_state_slots"] = slots
+    return slots
+
+
+def _inference_cache(module, dtype, device, build):
+    """`build(dtype)`'s tensors, kept on `module` until one of its
+    parameters or buffers is replaced or changed in place (a load_state_dict,
+    a copy_, an optimizer step: their data_ptr or _version), or another
+    dtype or device asks. A rebuild counts as `net_weight_refolds`."""
+    key = (dtype, device, tuple((t.data_ptr(), t._version) for d, n in _state_slots(module)
+                                if (t := d[n]) is not None))
+    entry = module.__dict__.get("_inference_cache")
+    if entry is not None and entry[0] == key:
+        return entry[1]
+    with torch.no_grad():
+        value = build(dtype)
+    module.__dict__["_inference_cache"] = (key, value)
+    T.count("net_weight_refolds")
+    return value
+
+
+def _channels_last(w, dtype):
+    return w.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _conv_nhwc(x, w, b, padding, groups=1):
+    """F.conv2d on NHWC `x` [B, H, W, Cin] with a channels-last weight:
+    cuDNN reads and writes NHWC, and the result is NHWC again."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=padding,
+                    groups=groups).permute(0, 2, 3, 1)
+
+
+class _Eval:
+    """One eval forward's shared state: the board mask [B, H, W] (float32,
+    contiguous) and its views, the compute dtype (autocast's, else float32),
+    whether the epilogue takes the kernel (on CUDA) and the conv blocks
+    counted for the recorder."""
+
+    def __init__(self, planes, mask_plane):
+        dev = planes.device
+        self.device = dev
+        self.dtype = (torch.get_autocast_dtype(dev.type)
+                      if torch.is_autocast_enabled(dev.type) else torch.float32)
+        self.fused = dev.type == "cuda"
+        self.m = planes[..., mask_plane].float().contiguous()
+        self.mask = self.m[:, None]            # [B, 1, H, W], for global_pool
+        self.m4 = self.m[..., None]            # [B, H, W, 1]
+        self.msum = self.m.sum((1, 2))
+        self.msqrt = torch.sqrt(self.msum)
+        self.factors = pool_factors(self.mask, self.msum, self.msqrt)
+        self.neg = self.factors[3][:, 0]       # [B, H, W]
+        self.blocks = self.fused_blocks = 0
+
+    def weights(self, module, build):
+        """`build(dtype)`, from `module`'s inference cache."""
+        return _inference_cache(module, self.dtype, self.device, build)
+
+    def conv(self, module, x):
+        """A plain nn.Conv2d (with bias) on NHWC `x`, its weight cached."""
+        w, b = self.weights(module, lambda dt: (_channels_last(module.weight, dt),
+                                                module.bias.to(dt)))
+        return _conv_nhwc(x, w, b, module.padding[0])
+
+    def pool(self, x, is_value_head=False):
+        """global_pool of NHWC `x`."""
+        return global_pool(x.permute(0, 3, 1, 2), self.mask, self.msum, self.msqrt,
+                           is_value_head, self.factors)
+
+    def epilogue(self, x, scale=None, bias=None, *, want, **kw):
+        """ops/epilogue.py on `x` -> (float32 y, y in the compute dtype):
+        `want` "f32", "lo" or "both" says which the caller reads (in
+        float32 compute one tensor is both)."""
+        f, lo = E.epilogue(x, self.m, scale, bias, out_f32=want != "lo",
+                   out_lo=None if want == "f32" else self.dtype, **kw)
+        if self.dtype == torch.float32:
+            f = lo = f if f is not None else lo
+        return f, lo
+
+    def block(self, x, scale, bias, want, act, **kw):
+        """A conv block's epilogue, counted."""
+        self.blocks += 1
+        self.fused_blocks += self.fused
+        return self.epilogue(x, scale, bias, want=want, act=act, **kw)
+
+    def record(self):
+        T.count("net_conv_blocks", self.blocks)
+        T.count("net_epilogues_fused", self.fused_blocks)
 
 
 class _SoftplusGradientFloor(torch.autograd.Function):
@@ -127,12 +237,17 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask):
         if self.training:
             return self._renorm(x, mask)
+        scale, bias = self.folded()
+        out = x * scale[None, :, None, None] + bias[None, :, None, None]
+        return out * mask
+
+    def folded(self):
+        """The inference form's float32 (scale, bias): rsqrt(var + eps) *
+        gamma and beta - mean * scale."""
         scale = torch.rsqrt(self.var + self.eps)
         if self.gamma is not None:
             scale = scale * self.gamma
-        bias = self.beta - self.mean * scale
-        out = x * scale[None, :, None, None] + bias[None, :, None, None]
-        return out * mask
+        return scale, self.beta - self.mean * scale
 
     def _renorm(self, x, mask):
         xf = x.float()
@@ -177,10 +292,22 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False)
         self.bn = MaskedBatchNorm(cout, use_gamma, rmax=rmax, dmax=dmax)
+        self.act_name = activation
         self.act = act_fn(activation)
 
     def forward(self, x, mask):
         return self.act(self.bn(self.conv(x) * mask, mask))
+
+    def _folded(self, dtype):
+        return (_channels_last(self.conv.weight, dtype), *self.bn.folded())
+
+    def infer(self, ev, x, want, act=None, **tail):
+        """Eval: NHWC `x` in the compute dtype -> (float32, compute dtype)
+        outputs (``_Eval.epilogue``); `act` (default the block's own) and
+        `tail` (se, skip, skip_after_act) go to the epilogue."""
+        w, scale, bias = ev.weights(self, self._folded)
+        y = _conv_nhwc(x, w, None, self.conv.padding[0])
+        return ev.block(y, scale, bias, want, act or self.act_name, **tail)
 
 
 class BroadcastDWConv(nn.Module):
@@ -214,17 +341,35 @@ class DepthwiseConvBlock(nn.Module):
         self.conv = BroadcastDWConv(features, kernel)
         self.rep3x3 = BroadcastDWConv(features, 3)
         self.bn = MaskedBatchNorm(features, use_gamma, rmax=rmax, dmax=dmax)
+        self.act_name = activation
         self.act = act_fn(activation)
 
-    def conv2d(self, x):
+    def merged(self):
+        """The merged float32 kernel [C, 1, k, k] and bias [C]."""
         k = self.conv.weight.shape[-1]
         p = (k - 3) // 2
         w = self.conv.effective_weight() + F.pad(self.rep3x3.effective_weight(), (p, p, p, p))
-        return F.conv2d(x, w, self.conv.bias + self.rep3x3.bias, padding=k // 2,
-                        groups=w.shape[0])
+        return w, self.conv.bias + self.rep3x3.bias
+
+    def conv2d(self, x, w=None, b=None):
+        """The grouped conv of NCHW `x`, with the merged kernel `w` and bias
+        `b` (default: merged now)."""
+        if w is None:
+            w, b = self.merged()
+        return F.conv2d(x, w, b, padding=w.shape[-1] // 2, groups=w.shape[0])
 
     def forward(self, x, mask):
         return self.act(self.bn(self.conv2d(x) * mask, mask))
+
+    def _folded(self, dtype):
+        w, b = self.merged()
+        return (_channels_last(w, dtype), b.to(dtype), *self.bn.folded())
+
+    def infer(self, ev, x, want, **tail):
+        """As ConvBlock.infer."""
+        w, b, scale, bias = ev.weights(self, self._folded)
+        y = self.conv2d(x.permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+        return ev.block(y, scale, bias, want, self.act_name, **tail)
 
 
 class Dense(nn.Module):
@@ -236,21 +381,30 @@ class Dense(nn.Module):
     def forward(self, x):
         return self.act(self.fc(x))
 
+    def infer(self, ev, x):
+        w, b = ev.weights(self, lambda dt: (self.fc.weight.to(dt), self.fc.bias.to(dt)))
+        return self.act(F.linear(x, w, b))
 
-def global_pool(x, mask, msum, msqrt, is_value_head=False):
-    """[B, C, H, W] -> [B, 3C]."""
-    xf = x.float()
-    div = msum[:, None]
-    mean = xf.sum((2, 3)) / div
+
+def pool_factors(mask, msum, msqrt, is_value_head=None):
+    """global_pool's per-board factors: (divisor [B, 1], the l1 factor
+    [B, 1], the value head's l2 factor [B, 1], the off-board penalty
+    (1 - mask) * CRAZY_NEGATIVE_VALUE); True or False for `is_value_head`
+    leaves out (None) the factor only the other head reads."""
     b_diff = msqrt[:, None] - B_AVG
-    if is_value_head:
-        l1 = mean * (b_diff / 10.0)
-        l2 = mean * (torch.square(b_diff) / 100.0 - B_VARIANCE)
-    else:
-        raw = xf + (1.0 - mask.float()) * CRAZY_NEGATIVE_VALUE
-        l1 = mean * (b_diff / 10.0)
-        l2 = raw.amax((2, 3))
-    return torch.cat([mean, l1, l2], 1).to(x.dtype)
+    f2 = torch.square(b_diff) / 100.0 - B_VARIANCE if is_value_head is not False else None
+    neg = (1.0 - mask.float()) * CRAZY_NEGATIVE_VALUE if not is_value_head else None
+    return msum[:, None], b_diff / 10.0, f2, neg
+
+
+def global_pool(x, mask, msum, msqrt, is_value_head=False, factors=None):
+    """[B, C, H, W] -> [B, 3C]; `factors`: pool_factors(mask, msum, msqrt)
+    when the caller has them."""
+    div, f1, f2, neg = factors or pool_factors(mask, msum, msqrt, is_value_head)
+    xf = x.float()
+    mean = xf.sum((2, 3)) / div
+    l2 = mean * f2 if is_value_head else (xf + neg).amax((2, 3))
+    return torch.cat([mean, mean * f1, l2], 1).to(x.dtype)
 
 
 class SqueezeExcite(nn.Module):
@@ -267,6 +421,11 @@ class SqueezeExcite(nn.Module):
         out = torch.sigmoid(gammas)[:, :, None, None] * x + betas[:, :, None, None]
         return out * mask
 
+    def gates(self, ev, x):
+        """Eval: the excite layer's output [B, 2C] (gammas | betas) for NHWC
+        `x`; the epilogue applies them."""
+        return self.excite.infer(ev, self.squeeze.infer(ev, ev.pool(x)))
+
 
 class _Block(nn.Module):
     """A tower block's tail: the optional SE (``self.se``), then
@@ -276,6 +435,17 @@ class _Block(nn.Module):
         if self.se is not None:
             out = self.se(out, mask, msum, msqrt)
         return self.act(out + skip)
+
+    def _finish_infer(self, ev, conv, x, skip, want):
+        """Eval: the tail conv `conv` (its activation the identity) on `x`,
+        then the tail, in the conv's epilogue; with SE, the conv's epilogue
+        writes the float32 output that the SE pools, and a second epilogue
+        applies the gates, the skip and the activation."""
+        if self.se is None:
+            return conv.infer(ev, x, want, act=self.act_name, skip=skip)
+        y, _ = conv.infer(ev, x, "f32")
+        return ev.epilogue(y, se=self.se.gates(ev, y), skip=skip, act=self.act_name,
+                           want=want)
 
 
 def _se(features: int, se_size: int | None, activation: str):
@@ -289,11 +459,17 @@ class ResidualBlock(_Block):
         self.conv1 = ConvBlock(features, features, 3, False, activation, rmax, dmax)
         self.conv2 = ConvBlock(features, features, 3, True, "identity", rmax, dmax)
         self.se = _se(features, se_size, activation)
+        self.act_name = activation
         self.act = act_fn(activation)
 
     def forward(self, x, mask, msum, msqrt):
         out = self.conv2(self.conv1(x, mask), mask)
         return self._finish(out, x, mask, msum, msqrt)
+
+    def infer(self, ev, x, want="both"):
+        """Eval: `x` = (float32, compute dtype) NHWC -> the same pair."""
+        _, out = self.conv1.infer(ev, x[1], "lo")
+        return self._finish_infer(ev, self.conv2, out, x[0], want)
 
 
 class BottleneckBlock(_Block):
@@ -308,12 +484,19 @@ class BottleneckBlock(_Block):
         self.conv2 = ConvBlock(c, c, 3, False, a, *rd)
         self.post = ConvBlock(c, features, 1, True, "identity", *rd)
         self.se = _se(features, se_size, a)
+        self.act_name = a
         self.act = act_fn(a)
 
     def forward(self, x, mask, msum, msqrt):
         out = self.pre(x, mask)
         out = self.conv2(self.conv1(out, mask), mask)
         return self._finish(self.post(out, mask), x, mask, msum, msqrt)
+
+    def infer(self, ev, x, want="both"):
+        _, out = self.pre.infer(ev, x[1], "lo")
+        _, out = self.conv1.infer(ev, out, "lo")
+        _, out = self.conv2.infer(ev, out, "lo")
+        return self._finish_infer(ev, self.post, out, x[0], want)
 
 
 class NestedBottleneckBlock(_Block):
@@ -329,12 +512,18 @@ class NestedBottleneckBlock(_Block):
         self.block2 = ResidualBlock(c, None, a, *rd)
         self.post = ConvBlock(c, features, 1, True, "identity", *rd)
         self.se = _se(features, se_size, a)
+        self.act_name = a
         self.act = act_fn(a)
 
     def forward(self, x, mask, msum, msqrt):
         out = self.pre(x, mask)
         out = self.block2(self.block1(out, mask, msum, msqrt), mask, msum, msqrt)
         return self._finish(self.post(out, mask), x, mask, msum, msqrt)
+
+    def infer(self, ev, x, want="both"):
+        out = self.pre.infer(ev, x[1], "both")
+        _, out = self.block2.infer(ev, self.block1.infer(ev, out), "lo")
+        return self._finish_infer(ev, self.post, out, x[0], want)
 
 
 class MixerBlock(_Block):
@@ -352,6 +541,7 @@ class MixerBlock(_Block):
         self.ffn1 = ConvBlock(features, ffn, 1, False, a, *rd)
         self.ffn2 = ConvBlock(ffn, features, 1, True, "identity", *rd)
         self.se = _se(features, se_size, a)
+        self.act_name = a
         self.act = act_fn(a)
 
     def forward(self, x, mask, msum, msqrt):
@@ -362,6 +552,15 @@ class MixerBlock(_Block):
             out = self.dw(x, mask)
         out = self.ffn2(self.ffn1(out, mask), mask)
         return self._finish(out, x, mask, msum, msqrt)
+
+    def infer(self, ev, x, want="both"):
+        if self.version == 1:
+            x = self.dw.infer(ev, x[1], "both", skip=x[0], skip_after_act=True)
+            out = x[1]
+        else:
+            _, out = self.dw.infer(ev, x[1], "lo")
+        _, out = self.ffn1.infer(ev, out, "lo")
+        return self._finish_infer(ev, self.ffn2, out, x[0], want)
 
 
 def _parse_block(spec: str, cfg: NetConfig):
@@ -447,6 +646,14 @@ class SayuriNet(nn.Module):
         return self
 
     def forward(self, planes):
+        if self.training or torch.is_grad_enabled():
+            return self.forward_modules(planes)
+        return self._forward_eval(planes)
+
+    def forward_modules(self, planes):
+        """The forward through each module's ``forward`` (NCHW views): the
+        training forward, and any forward with autograd on; in eval() mode,
+        the inference formulas without the cache or the epilogue."""
         cfg = self.cfg
         b, h, w, _ = planes.shape
         hw = h * w
@@ -469,7 +676,6 @@ class SayuriNet(nn.Module):
         pol_spatial = pol_spatial * mask + (1.0 - mask) * CRAZY_NEGATIVE_VALUE
         pol_spatial = pol_spatial.reshape(b, cfg.policy_outs, hw).transpose(1, 2)
         pol_pass = self.pol_pass(pol_inter)
-        pol_all = torch.cat([pol_spatial, pol_pass[:, None, :]], 1).float()
 
         # ---- value head ----
         val = self.value_conv(x, mask)
@@ -479,7 +685,52 @@ class SayuriNet(nn.Module):
         ownership = torch.tanh(
             (self.ownership_conv(val) * mask).reshape(b, hw).float()
         )
-        val_misc = self.value_misc(val_inter).float()
+        return self._outputs(pol_spatial, pol_pass, ownership, self.value_misc(val_inter))
+
+    def _forward_eval(self, planes):
+        """The eval forward with autograd off: NHWC throughout, the
+        inference cache's weights, one epilogue after each conv (module
+        docstring)."""
+        cfg = self.cfg
+        b, h, w, _ = planes.shape
+        hw = h * w
+        ev = _Eval(planes, cfg.input_channels - 1)
+        x = self.input_conv.infer(ev, planes.to(ev.dtype), "both")
+        last = len(self.tower) - 1
+        # the heads read the trunk's output through convs only
+        for i, block in enumerate(self.tower):
+            x = block.infer(ev, x, "lo" if i == last else "both")
+
+        # ---- policy head ----
+        if cfg.policy_head_type == "RepLK":
+            _, pol = self.policy_conv.infer(ev, x[1], "lo")
+            _, pol = self.policy_dw.infer(ev, pol, "lo")
+            pol, _ = self.policy_pw.infer(ev, pol, "f32")
+        else:
+            pol, _ = self.policy_conv.infer(ev, x[1], "f32")
+        pol_inter = self.policy_inter.infer(ev, ev.pool(pol))
+        pol = (pol + pol_inter[:, None, None, :]) * ev.m4
+        pol_spatial = ev.conv(self.pol_misc, pol.to(ev.dtype))
+        pol_spatial = pol_spatial * ev.m4 + ev.neg[..., None]
+        pol_spatial = pol_spatial.reshape(b, hw, cfg.policy_outs)
+        pol_pass = self.pol_pass.infer(ev, pol_inter)
+
+        # ---- value head ----
+        val, val_lo = self.value_conv.infer(ev, x[1], "both")
+        val_inter = self.value_inter.infer(ev, ev.pool(val, is_value_head=True))
+        ownership = torch.tanh(
+            (ev.conv(self.ownership_conv, val_lo) * ev.m4).reshape(b, hw).float()
+        )
+        ev.record()
+        return self._outputs(pol_spatial, pol_pass, ownership,
+                             self.value_misc.infer(ev, val_inter))
+
+    @staticmethod
+    def _outputs(pol_spatial, pol_pass, ownership, val_misc):
+        """The heads' dict from the policy planes [B, HW, 5], the pass logits
+        [B, 5], the ownership [B, HW] and the value head's outputs."""
+        pol_all = torch.cat([pol_spatial, pol_pass[:, None, :]], 1).float()
+        val_misc = val_misc.float()
         errors = softplus_with_gradient_floor(val_misc[:, 13:15])
         return {
             "prob": pol_all[:, :, 0],

@@ -132,6 +132,24 @@ extern "C" void shim_chases(const void* own, const void* opp, const void* size,
   }}, barriers, schedule, warp_ops);
 }}
 """,
+    "epilogue": f"""
+extern "C" void shim_epilogue(const void* x, int in_bf16, const void* m,
+    const void* scale, const void* bias, const void* se, int se_bf16,
+    const void* skip, int skip_mode, int act, void* out_f32, void* out_lo,
+    long long pixels, int hw, int channels, int vec, int max_blocks, {_TAIL}) {{
+  const int groups = vec ? channels / 8 : channels;
+  const int block = epilogue_block(groups);
+  const long long grid = epilogue_grid(pixels, groups, block, max_blocks);
+#define EPI_SHIM(A, V)                                                        \\
+  shim::launch(grid, block, [=] {{                                            \\
+    epilogue_kernel<A, V>(x, in_bf16, act, (const float*)m,                   \\
+        (const float*)scale, (const float*)bias, se, se_bf16,                 \\
+        (const float*)skip, skip_mode, (float*)out_f32, (uint16_t*)out_lo,    \\
+        pixels, hw, channels);                                                \\
+  }}, barriers, schedule);
+  EPI_DISPATCH(act, vec, EPI_SHIM)
+}}
+""",
 }
 
 
@@ -155,8 +173,9 @@ def build(csrc: str | Path = CSRC_DIR) -> ctypes.CDLL:
     cxx = find_cxx()
     if cxx is None:
         raise RuntimeError("host_shim: no C++ compiler (g++ or $CXX)")
+    # a tree without a source (an older csrc/) builds without its entry points
     units = {name: _cut((csrc / f"{name}.cu").read_text()) + _ENTRY_POINTS[name]
-             for name in _ENTRY_POINTS}
+             for name in _ENTRY_POINTS if (csrc / f"{name}.cu").exists()}
     key = hashlib.sha256()
     for text in (*units.values(), SHIM_HEADER.read_text(),
                  *(p.read_text() for p in sorted(csrc.glob("*.cuh")))):
@@ -192,6 +211,24 @@ def _run(fn, *args, boards, schedule):
     barriers = torch.zeros(boards, dtype=torch.int64)
     fn(*args, _p(barriers), ctypes.c_ulonglong(schedule))
     return barriers
+
+
+def epilogue(lib, *args, max_blocks=2, schedule=0, **kw):
+    """ops/epilogue.py's ``epilogue`` on CPU tensors through the kernel
+    (same arguments), its grid cut to `max_blocks` blocks so that a thread
+    loops over several pixels. Returns (float32 output or None, bf16
+    output or None)."""
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    cargs, y32, ylo = EP.launch_args(*args, max_blocks=max_blocks, **kw)
+    fn = lib.shim_epilogue
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, i, vp, vp, vp, vp, i, vp, i, i, vp, vp, ll, i, i, i, i, vp,
+                   ctypes.c_ulonglong]
+    fn.restype = None
+    barriers = torch.zeros(max_blocks, dtype=torch.int64)
+    fn(*cargs, _p(barriers), schedule)
+    return y32, ylo
 
 
 def _lead(t):

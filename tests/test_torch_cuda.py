@@ -279,3 +279,118 @@ def test_gtp_genmove_on_card(cuda):
         assert int(s.to_move[0]) == color
         assert bool(env.legal_action_mask(s)[0, v]) or v == 81
         s = env.step(s, torch.tensor([v], dtype=torch.int32))
+
+
+# the eval forward through the epilogue kernel against the modules' forward,
+# both under bf16 autocast: each head within this of the other (the `errors`
+# head before its fixed output scales)
+FORWARD_ATOL = 1e-3
+
+
+@pytest.fixture
+def epilogue_card(cuda):
+    """The card, with csrc/epilogue.cu built (skips without nvcc)."""
+    from sayuri_tpu_torch.ops import build
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    try:
+        build.find_nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    EP._lib()
+    return cuda
+
+
+def _epilogue_inputs(cuda, b, c, dtype):
+    g = torch.Generator(device=cuda).manual_seed(c)
+    m = torch.ones(b, 19, 19, device=cuda)
+    m[::7] = 0.0
+    m[::7, :9, :9] = 1.0
+    x = torch.randn(b, 19, 19, c, device=cuda, generator=g).to(dtype)
+    skip = torch.randn(b, 19, 19, c, device=cuda, generator=g) * m[..., None]
+    scale = torch.rand(c, device=cuda, generator=g) + 0.5
+    bias = torch.randn(c, device=cuda, generator=g) * 0.1
+    se = torch.randn(b, 2 * c, device=cuda, generator=g).to(dtype)
+    return x, m, skip, scale, bias, se
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("cell", [(256, 192), (1024, 96)], ids=["b15c192", "b6c96"])
+def test_epilogue_kernel_equals_twin(epilogue_card, cell, dtype):
+    """csrc/epilogue.cu against its plain twin on the card, at the two
+    benchmark cells' batch and trunk widths, every activation, in each form
+    a block uses: float32 within a few ulps, bf16 within one rounding
+    step."""
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    x, m, skip, scale, bias, se = _epilogue_inputs(epilogue_card, *cell, dtype)
+    # the SE pass reads the float32 batch-norm output, as in the net
+    forms = ((x, dict(scale=scale, bias=bias, skip=skip)),
+             (x.float(), dict(se=se, skip=skip)),
+             (x, dict(scale=scale, bias=bias, skip=skip, skip_after_act=True)),
+             (x, dict(scale=scale, bias=bias, out_f32=False)))
+    EP.reset_launch_counts()
+    with torch.no_grad():
+        for act in EP.ACTS:
+            for y, kw in forms:
+                got = EP.epilogue(y, m, act=act, out_lo=torch.bfloat16, **kw)
+                want = EP.epilogue_plain(y, m, act=act, out_lo=torch.bfloat16, **kw)
+                for a, w, rtol in zip(got, want, (1e-6, 2.0 ** -7)):
+                    if w is None:
+                        assert a is None
+                    else:
+                        torch.testing.assert_close(a, w, rtol=rtol, atol=1e-6,
+                                                   msg=f"{act} {sorted(kw)}")
+    assert EP.LAUNCHES == {"epilogue": len(EP.ACTS) * len(forms)}
+
+
+def test_epilogue_rejects_what_it_cannot_run(epilogue_card):
+    cuda = epilogue_card
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    x, m, skip, scale, bias, _ = _epilogue_inputs(cuda, 4, 16, torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        EP.epilogue(x.half(), m)
+    with pytest.raises(ValueError, match="contiguous"):
+        EP.epilogue(x.transpose(1, 2), m)
+    with pytest.raises(ValueError, match="on cpu"):
+        EP.epilogue(x, m, scale.cpu(), bias.cpu())
+
+
+@pytest.mark.parametrize("net", ["b6c96", "b6c96-mix"])
+def test_eval_forward_through_the_kernel_matches_the_twin(epilogue_card, net):
+    """A whole eval forward (bf16 autocast, B=64 19x19): with autograd off
+    every conv block's epilogue is the kernel and the weights come from the
+    cache; with it on, the modules' forward runs and launches no epilogue.
+    The heads agree within FORWARD_ATOL; the recorder counts every conv
+    block as fused."""
+    from sayuri_tpu_torch import telemetry as T
+    from sayuri_tpu_torch.bench import net_config
+    from sayuri_tpu_torch.models.network import SayuriNet
+    from sayuri_tpu_torch.ops import epilogue as EP
+
+    cuda = epilogue_card
+    model = SayuriNet(net_config(net)).init_random(0).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            (buf.uniform_(0.5, 2.0, generator=g) if name.endswith("var")
+             else buf.normal_(0.0, 0.1, generator=g))
+    _, m, *_ = _epilogue_inputs(cuda, 64, 8, torch.float32)
+    planes = (torch.rand(64, 19, 19, 43, device=cuda, generator=g) > 0.7).float()
+    planes = planes * m[..., None]
+    planes[..., 42] = m
+    EP.reset_launch_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        with T.run(1) as rec, torch.no_grad():
+            fused = model(planes)
+        assert EP.LAUNCHES["epilogue"] >= rec.counter("net_conv_blocks") > 0
+        assert rec.counter("net_epilogues_fused") == rec.counter("net_conv_blocks")
+        plain = model(planes)
+    assert EP.LAUNCHES["epilogue"] == rec.counter("net_conv_blocks") + sum(
+        b.se is not None for b in model.tower)
+    scale = {"errors": torch.tensor([0.25, 150.0], device=cuda)}
+    for k in fused:
+        s = scale.get(k, 1.0)
+        torch.testing.assert_close(fused[k] / s, plain[k].detach() / s, rtol=0,
+                                   atol=FORWARD_ATOL, msg=k)

@@ -11,8 +11,10 @@ capture); greedy_kernel and chase_kernel on the lanes that
 ladder_planes_batch builds on random 9x9 and 19x19 positions, also with
 limits small enough to bind. On the stress boards the labels and the
 flood are also held against the JAX package's chain_labels and flood, and
-the ladder prep against its Pallas kernel in interpret mode. Skips when
-there is no C++ compiler.
+the ladder prep against its Pallas kernel in interpret mode. The net's
+eval epilogue kernel (csrc/epilogue.cu) is held against its plain twin in
+every form, activation and input dtype, and a net of every block family
+runs its eval forward through it. Skips when there is no C++ compiler.
 """
 
 import statistics
@@ -28,6 +30,7 @@ from sayuri_tpu.ops import analysis as AK
 from sayuri_tpu_torch.game import board as TB
 from sayuri_tpu_torch.game.positions import random_positions, spiral, stress_positions
 from sayuri_tpu_torch.ops import analysis as TA
+from sayuri_tpu_torch.ops import epilogue as EP
 from sayuri_tpu_torch.ops import host_shim as H
 from sayuri_tpu_torch.ops import ladder_kernel as LK
 from torch_draws import one_torch_thread  # noqa: F401 (fixture)
@@ -373,3 +376,84 @@ def test_analysis_kernels_on_passdead_goldens(lib):
     got, bar = H.step_and_analyze(lib, *args, action)
     _assert_equal(got, TA.step_and_analyze_plain(*args, action),
                   "step_analysis_kernel goldens")
+
+
+# the activations the host computes as torch's CPU kernels do; the others
+# round apart by an ulp: the host's libm, and hardswish's 1/6 (the kernel
+# follows ATen's CUDA kernel, which multiplies by it; the CPU's divides)
+_EXACT_ACTS = ("identity", "relu")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("act", EP.ACTS)
+def test_epilogue_kernel(lib, act, dtype):
+    """csrc/epilogue.cu's kernel against ops/epilogue.py's plain twin, in
+    each form a block uses it (conv output -> batch norm -> act; the tail
+    with float32 or bf16 SE gates and the skip; the skip after the
+    activation; SE gates and skip without the batch norm), 8-channel
+    vectors (16 and 24 channels)
+    and one channel a thread (12), a grid of 1 or 3 blocks so that each
+    thread loops over several pixels, on 9x9 boards inside a 19x19 buffer."""
+    g = torch.Generator().manual_seed(EP.ACTS.index(act))
+    m = torch.zeros(2, 19, 19)
+    m[0, :9, :9] = 1.0
+    m[1, :19, :19] = 1.0
+    cases = [
+        (16, dict(bn=True)),
+        (24, dict(bn=True, se=torch.float32, skip=True)),
+        (16, dict(bn=True, se=torch.bfloat16, skip=True)),
+        (16, dict(bn=True, skip=True, skip_after_act=True)),
+        (12, dict(se=torch.float32, skip=True)),
+        (12, dict(bn=True, out_f32=False)),
+    ]
+    for c, case in cases:
+        x = torch.randn(2, 19, 19, c, generator=g).to(dtype)
+        kw = dict(act=act, out_f32=case.get("out_f32", True), out_lo=torch.bfloat16,
+                  skip_after_act=case.get("skip_after_act", False))
+        if case.get("bn"):
+            kw["scale"] = torch.rand(c, generator=g) + 0.5
+            kw["bias"] = torch.randn(c, generator=g) * 0.1
+        if case.get("se"):
+            kw["se"] = torch.randn(2, 2 * c, generator=g).to(case["se"])
+        if case.get("skip"):
+            kw["skip"] = torch.randn(2, 19, 19, c, generator=g)
+        want = EP.epilogue_plain(x, m, **kw)
+        for blocks in (1, 3):
+            got = H.epilogue(lib, x, m, max_blocks=blocks, **kw)
+            for w, o, name in zip(want, got, ("f32", "bf16")):
+                if w is None:
+                    assert o is None
+                elif act in _EXACT_ACTS and "se" not in kw:
+                    assert torch.equal(o, w), (c, case, name)
+                else:
+                    # bf16 gates: the host's libm and torch may round a
+                    # sigmoid to bf16 a step apart
+                    tol = 1e-6 if name == "f32" and "se" not in kw else 2.0 ** -7
+                    torch.testing.assert_close(o, w, rtol=tol, atol=1e-6,
+                                               msg=f"{c} {case} {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_eval_net_through_epilogue_kernel(lib, dtype, monkeypatch):
+    """The eval forward of a net of every block family with the RepLK head,
+    each epilogue through the kernel (the CUDA path's control flow on the
+    CPU), equals the modules' forward bit for bit (relu: no libm rounding)."""
+    from sayuri_tpu_torch.models import network as N
+    from test_torch_epilogue import mixed_net, planes
+
+    calls = []
+
+    def kernel(x, m, *args, **kw):
+        calls.append(x.shape[-1])
+        return H.epilogue(lib, x, m, *args, max_blocks=2, **kw)
+
+    monkeypatch.setattr(N.E, "epilogue", kernel)
+    net = mixed_net(act="relu")
+    x = planes()
+    with torch.no_grad(), torch.autocast("cpu", dtype=dtype, enabled=dtype != torch.float32):
+        want = net.forward_modules(x)
+        got = net(x)
+    # every conv block once, and the two SE blocks' second epilogue
+    assert len(calls) == 23 + 2
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
