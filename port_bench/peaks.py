@@ -6,13 +6,16 @@ which hold at the full 700 W power limit; every run prints the card's
 name and power limit (`card`) beside its numbers.
 
 The counts are the algorithm's, from the configuration's shapes, not the
-profiler's: 2 * H * W * k^2 * C_in * C_out a convolution, 2 * in * out a
-dense layer and a row, over every cell of the board buffer.
+profiler's: 2 * H * W * k^2 * C_in * C_out a convolution, 2 * H * W * k^2 * C
+a depthwise one, 2 * in * out a dense layer and a row, over every cell of
+the board buffer; every kernel of the net's parameters once.
 """
 
 from __future__ import annotations
 
 import subprocess
+
+from port_bench.reference import net as N
 
 BF16_FLOPS = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -29,27 +32,35 @@ def card():
 
 
 def layers(net):
-    """[(kind, cin, cout, k)] of the forward pass: 'conv' layers over the
-    board, 'dense' layers once a row."""
-    c, cin = net["residual_channels"], net["input_channels"]
-    pc, vc = net["policy_head_channels"], net["value_head_channels"]
-    se = c // net["se_ratio"]
-    out = [("conv", cin, c, 3)]
-    for spec in net["stack"]:
-        out += [("conv", c, c, 3), ("conv", c, c, 3)]
-        if spec.endswith("-SE"):
-            out += [("dense", 3 * c, se, 1), ("dense", se, 2 * c, 1)]
-    out += [("conv", c, pc, 1), ("dense", 3 * pc, pc, 1), ("conv", pc, net["policy_outs"], 1),
-            ("dense", pc, net["policy_outs"], 1),
-            ("conv", c, vc, 1), ("dense", 3 * vc, 3 * vc, 1), ("conv", vc, 1, 1),
-            ("dense", 3 * vc, net["value_misc"], 1)]
+    """[(kind, cin, cout, k)] of the forward pass, one a kernel of the net's
+    parameters (reference/net.py `param_shapes`, which the program loads
+    strictly): 'conv' layers over the board, 'dwconv' depthwise convs over
+    the board (one k x k kernel a channel; a depthwise block's 3x3 kernel is
+    merged into its k x k one, as the program runs it), 'dense' layers once
+    a row."""
+    shapes = N.param_shapes(net)
+    out = []
+    for name, shape in shapes.items():
+        if not name.endswith("weight") or name.endswith("rep3x3.weight"):
+            continue
+        if len(shape) == 2:
+            out.append(("dense", shape[1], shape[0], 1))
+        elif name[:-len("weight")] + "gamma" in shapes:    # a broadcast depthwise kernel
+            out.append(("dwconv", shape[0], shape[0], shape[-1]))
+        else:
+            out.append(("conv", shape[1], shape[0], shape[-1]))
     return out
+
+
+def _macs(kind, i, o, k):
+    """Multiply-adds of a layer at one cell (conv) or one row (dense)."""
+    return k * k * (i if kind == "dwconv" else i * o)
 
 
 def forward_flops(net):
     """Operations of one evaluation's forward pass."""
     hw = net["boardsize"] ** 2
-    return sum(2 * (hw if kind == "conv" else 1) * k * k * i * o
+    return sum(2 * (1 if kind == "dense" else hw) * _macs(kind, i, o, k)
                for kind, i, o, k in layers(net))
 
 
@@ -57,6 +68,6 @@ def forward_bytes(net, rows, act_bytes=2, weight_bytes=2):
     """Bytes of one forward pass over `rows` positions: every weight once,
     and each layer's input and output once."""
     hw = net["boardsize"] ** 2
-    weights = sum(k * k * i * o for _, i, o, k in layers(net)) * weight_bytes
-    acts = sum((hw if kind == "conv" else 1) * (i + o) for kind, i, o, _ in layers(net))
+    weights = sum(_macs(*layer) for layer in layers(net)) * weight_bytes
+    acts = sum((1 if kind == "dense" else hw) * (i + o) for kind, i, o, _ in layers(net))
     return weights + rows * acts * act_bytes

@@ -5,9 +5,11 @@ measured program: a step that leaves the state unchanged, half of the
 batch left out of the search, a prior or a value altered where the
 evaluator produces it, a PUCT selection that takes the second-best child,
 and in self-play a move altered where the actor picks it (to the next
-vertex, or to another legal move) and a uniform target policy."""
+vertex, or to another legal move) and a uniform target policy; on a net of
+nested-bottleneck blocks, an inner residual block's skip dropped."""
 
 import pytest
+from conftest import NESTED
 
 from port_bench import run as RUN
 
@@ -122,6 +124,19 @@ def _second_best_child(monkeypatch):
     monkeypatch.setattr(MCTS, "_argmax_prior_tiebreak", staticmethod(pick))
 
 
+def _nested_inner_skip_dropped(monkeypatch):
+    from sayuri_tpu_torch.models.network import NestedBottleneckBlock
+
+    def infer(self, ev, x, want="both"):
+        out = self.pre.infer(ev, x[1], "both")
+        _, y = self.block1.conv1.infer(ev, out[1], "lo")
+        out = self.block1.conv2.infer(ev, y, "both", act=self.act_name)    # no skip
+        _, out = self.block2.infer(ev, out, "lo")
+        return self._finish_infer(ev, self.post, out, x[0], want)
+
+    monkeypatch.setattr(NestedBottleneckBlock, "infer", infer)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell, tiny):
     assert _run(tiny(cell))["correct"]
@@ -145,4 +160,13 @@ def test_selfplay_fault_is_caught(fault, tiny, monkeypatch):
 def test_second_best_child_is_caught(tiny, monkeypatch):
     _second_best_child(monkeypatch)
     res = _run(tiny("search-b15c192-midgame"))
+    assert not res["correct"], res["limits"]
+
+
+def test_nested_bottleneck_fault_is_caught(tiny, monkeypatch):
+    """The search cell on a net of nested-bottleneck blocks, an inner skip
+    dropped: not correct (the sound net runs correct in the manifest and
+    control tests)."""
+    _nested_inner_skip_dropped(monkeypatch)
+    res = _run(tiny("search-b15c192-midgame", stack=NESTED))
     assert not res["correct"], res["limits"]

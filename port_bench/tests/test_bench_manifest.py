@@ -1,12 +1,15 @@
 """BENCHMARK.json keeps to the benchmark's contract, and the harness finds
 a cell, a configuration, a traffic mix and a per-layer metric that are
-added as new files and entries, with no file of the harness edited."""
+added as new files and entries, with no file of the harness edited; a
+configuration of another block family or policy head is also run and
+judged that way."""
 
 import json
 import re
 import shutil
 
-from conftest import ROOT
+import pytest
+from conftest import MIX, NESTED, ROOT, tiny_traffic
 from port_bench import run as RUN
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -89,3 +92,51 @@ def test_new_cell_config_traffic_metric_are_found(tmp_path):
     old = RUN.Harness(root, b, "selfplay-b6c96-19x19", 1, "cpu")
     assert "sims_per_search.search" not in [m["name"] for m in old.per_layer()]
     assert [m["name"] for m in old.end_to_end()] == ["positions_per_s", "setup_s"]
+
+
+FAMILIES = {"nested-bottleneck": {"stack": NESTED},
+            "mixer-replk": {"stack": MIX, "policy_head_type": "RepLK"}}
+
+
+def _files(root):
+    return {p.relative_to(root): p.read_bytes() for p in (root / "port_bench").rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_new_block_family_config_is_found_and_judged(family, tmp_path):
+    """A configuration of another block family (a test-size net) under the
+    search traffic, added as a file and entries: found, run through the
+    whole cell on the CPU at the test size, and judged correct, with every
+    file of the harness as it was."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "port_bench", root / "port_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    b = _bench()
+    name, cell = f"b2c16-{family}", f"search-b2c16-{family}"
+    cfg = json.loads((root / "port_bench/configs/b6c96.json").read_text())
+    cfg["name"] = name
+    cfg["net"].update(residual_channels=16, policy_head_channels=8, value_head_channels=8,
+                      **FAMILIES[family])
+    (root / f"port_bench/configs/{name}.json").write_text(json.dumps(cfg))
+    (root / f"port_bench/limits/{cell}.json").write_text(
+        (root / "port_bench/limits/search-b15c192-midgame.json").read_text())
+    b["configs"].append({"name": name, "source": "https://example.org/" + name,
+                         "file": f"port_bench/configs/{name}.json", "reduced": [],
+                         "why": "test"})
+    b["workloads"].append({"name": cell, "config": name, "traffic": "search-midgame-b256",
+                           "chips": 1, "why": "test"})
+    for m in b["end_to_end"] + b["per_layer"]:
+        if "search-b15c192-midgame" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    h = tiny_traffic(RUN.Harness(root, b, cell, 2**31 + 55, "cpu"))
+    assert h.cfg["net"]["stack"] == FAMILIES[family]["stack"]
+    assert [m["name"] for m in h.end_to_end()] == ["playouts_per_s", "setup_s"]
+    res = RUN.run_cell(h, 0.5, 0, lambda: None)
+    assert res["correct"], res["limits"]
+    assert set(res["metrics"]) == {"playouts_per_s", "setup_s"}
+    added = {f"port_bench/configs/{name}.json", f"port_bench/limits/{cell}.json"}
+    copy = _files(root)
+    assert {str(p) for p in set(copy) - set(_files(ROOT))} == added
+    assert all(copy[p] == v for p, v in _files(ROOT).items())
